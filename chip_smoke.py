@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``lafs_cvpr2024_tpu_torch/csrc`` and
-drives its serving path at the full width of Part-fViT-B (dim 768, depth 12,
+drives its two paths at the full width of Part-fViT-B (dim 768, depth 12,
 11 heads × 64, mlp 2048, 196 landmarks, MobileNetV3-large stem, 112×112
-input, bf16) with random weights from ``--seed``. Phases, one line each:
+input, bf16) with random weights from ``--seed``: the embedding server and
+the SSL training step. Phases, one line each:
 
 1. the device (and ``nvidia-smi``'s name and power limit);
 2. kernel 1 (patch gather) against its plain PyTorch version at
@@ -21,15 +22,34 @@ input, bf16) with random weights from ``--seed``. Phases, one line each:
    ``EmbeddingClient``, the kernels' launch counts on that path, and the
    served faces/s over a stream of requests of 64 lasting ``SERVE_S``
    seconds, for the kernel configuration and then, with the server's model
-   swapped, for the plain one.
+   swapped, for the plain one;
+6. kernel 2 with dropout 0.1 and the pre-activation u saved, against its
+   plain version at the SSL step's shapes (T = 2·32·197 global and
+   8·32·37 local tokens), bf16 and fp32: output mask bit-identical, y and
+   u within tolerance, kernel, plain and dense ms;
+7. kernel 3 (LN-fused MLP backward) against its plain version at the same
+   shapes, rates 0 and 0.1: do, hd, du, xn, dx, dγ, dβ within tolerance,
+   hidden mask bit-identical, kernel, plain and cuBLAS dense-backward ms;
+8. the SSL step (``train/ssl.py``) with a DINOHead of 100,000 outputs, 2
+   global + 8 local crops of batch 32, 36 local landmarks, jitter 5,
+   dropout/emb-dropout/drop-path 0.1, bf16 compute, fp32 head, landmark
+   CNN and teacher, bf16 moments, on synthetic crops from ``--seed``: 3
+   warm-up and 10 timed steps per configuration (imgs/s = 32 / step time),
+   the three kernels' launch counts on the kernel configuration's steps,
+   loss finite, teacher and center moved, the weight-norm gain moved by its
+   weight decay alone; then one step of both configurations at every rate
+   0 from the same state and tokens: loss within 1e-2 relative, every
+   student gradient at cosine ≥ 0.99.
 
 Any failure raises (non-zero exit); without CUDA it exits non-zero before
 printing any result. The last lines are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` adds a torch.profiler run of both configurations at the
-served shape: one table of device time by kernel per configuration in DIR,
-and a line with the wall and busy device time per forward.
+served shape and of two SSL steps of each configuration: one table of
+device time by kernel per run in DIR, a line with the wall and busy device
+time, device time summed by kind of kernel, and one SSL step timed part by
+part (tokens, teacher, student forward and backward, tail).
 """
 
 from __future__ import annotations
@@ -49,6 +69,7 @@ import torch.nn.functional as F
 
 from lafs_cvpr2024_tpu_torch import _build
 from lafs_cvpr2024_tpu_torch.cli import serve_embeddings
+from lafs_cvpr2024_tpu_torch.models.layers import DropoutRNG, FeedForward
 from lafs_cvpr2024_tpu_torch.models.partfvit import (
     PartFViT,
     PartFViTConfig,
@@ -56,11 +77,22 @@ from lafs_cvpr2024_tpu_torch.models.partfvit import (
 )
 from lafs_cvpr2024_tpu_torch.ops.augment_device import scale_uint8
 from lafs_cvpr2024_tpu_torch.ops.fused_mlp import (
-    fused_ln_mlp_cuda,
-    fused_ln_mlp_plain,
+    FusedLNMLP,
+    dropout_mask,
+    fused_ln_mlp_bwd_cuda,
+    fused_ln_mlp_bwd_plain,
+    fused_ln_mlp_fwd_cuda,
+    fused_ln_mlp_fwd_plain,
 )
 from lafs_cvpr2024_tpu_torch.ops.patch_gather import patch_gather_plain
 from lafs_cvpr2024_tpu_torch.ops.patch_gather_cuda import patch_gather_cuda
+from lafs_cvpr2024_tpu_torch.train.ssl import (
+    SSLConfig,
+    create_landmark_provider,
+    create_ssl_state,
+    make_ssl_train_step,
+    step_seeds,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join("build", "smoke")  # relative: short unix-socket paths
@@ -75,7 +107,17 @@ KERNELS = {
     "fused_ln_mlp": dict(
         source="lafs_cvpr2024_tpu_torch/csrc/fused_ln_mlp.cu",
         replaces="lafs_cvpr2024_tpu/ops/fused_mlp.py:364"),
+    "fused_ln_mlp_bwd": dict(
+        source="lafs_cvpr2024_tpu_torch/csrc/fused_ln_mlp_bwd.cu",
+        replaces="lafs_cvpr2024_tpu/ops/fused_mlp.py:391"),
 }
+SERVE_KERNELS = ("patch_gather", "fused_ln_mlp")
+SSL_BATCH = 32                         # images per SSL step (bench.py)
+SSL_T = {"global": 2 * SSL_BATCH * 197, "local": 8 * SSL_BATCH * 37}
+SSL_ARGS = dict(lr=5e-4, wd=0.04, momentum=0.996, teacher_temp=0.04,
+                freeze_last=1.0)
+TOLS = ((torch.bfloat16, 2e-2), (torch.float32, 1e-4))
+DROP_SEED = 123456789                  # the kernels' int dropout seed
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -148,37 +190,70 @@ def phase_gather(dev, seed: int) -> dict:
     return out
 
 
-def phase_mlp(dev, seed: int) -> dict:
-    rng = np.random.default_rng(seed + 1)
-    d, h = 768, 2048
-    arrs = (rng.standard_normal((TOKENS, d)) * 2.0 + 0.5,
+def mlp_arrays(rng, t: int, d: int = 768, h: int = 2048):
+    """Operands of one MLP call (x, g, bt, w1, b1, w2, b2), weights in the
+    nn.Linear layout, as float64 numpy."""
+    return (rng.standard_normal((t, d)) * 2.0 + 0.5,
             1.0 + 0.1 * rng.standard_normal(d), 0.1 * rng.standard_normal(d),
-            rng.standard_normal((h, d)) / np.sqrt(d),  # nn.Linear layout
+            rng.standard_normal((h, d)) / np.sqrt(d),
             0.1 * rng.standard_normal(h),
             rng.standard_normal((d, h)) / np.sqrt(h),
             0.1 * rng.standard_normal(d))
+
+
+def on_card(arrs, dev, dtype):
+    return [torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+            for a in arrs]
+
+
+def rel_err(got, want):
+    """(max abs error, max-norm relative error) of got against want."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / max(want.float().abs().max().item(), 1e-30)
+
+
+def mask_matches(out, keep, undropped) -> bool:
+    """The zeros of a dropped-out tensor are the mask's drops, bit for bit:
+    dropped elements are 0, and a kept one is 0 only where the value
+    before dropout is (GELU rounds to 0 far left of 0)."""
+    return torch.equal(out != 0, keep & (undropped != 0))
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def dense_mlp(ops, rate: float, seed: int):
+    """What mlp_impl='dense' runs (cuBLAS, unfused): LN, then the port's
+    FeedForward with its FastDropout masks."""
+    x, g, bt, w1, b1, w2, b2 = ops
+    d, h = x.shape[1], w1.shape[0]
+    ff = FeedForward(d, h, rate).to(x.device, x.dtype).train()
+    with torch.no_grad():
+        ff.net[0].weight.copy_(w1), ff.net[0].bias.copy_(b1)
+        ff.net[3].weight.copy_(w2), ff.net[3].bias.copy_(b2)
+    rng = DropoutRNG(seed, x.device)
+    return ff, lambda: ff(F.layer_norm(x, (d,), g, bt, 1e-5), rng)
+
+
+def phase_mlp(dev, seed: int) -> dict:
+    rng = np.random.default_rng(seed + 1)
+    d = 768
+    arrs = mlp_arrays(rng, TOKENS)
     out = {}
-    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
-        x, g, bt, w1, b1, w2, b2 = (
-            torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
-            for a in arrs)
-        ops = (x, g, bt, w1, b1, w2, b2)
-        got = fused_ln_mlp_cuda(*ops)
-        want = fused_ln_mlp_plain(*ops)
+    for dtype, tol in TOLS:
+        ops = on_card(arrs, dev, dtype)
+        got, _ = fused_ln_mlp_fwd_cuda(*ops)
+        want, _ = fused_ln_mlp_fwd_plain(*ops)
         torch.cuda.synchronize()
         require(got.shape == want.shape == (TOKENS, d) and got.dtype == dtype,
                 f"fused_ln_mlp output {tuple(got.shape)} {got.dtype}")
-        err = (got.float() - want.float()).abs().max().item()
-        rel = err / want.float().abs().max().item()
-        ms = cuda_ms(lambda: fused_ln_mlp_cuda(*ops), iters=10)
-        plain_ms = cuda_ms(lambda: fused_ln_mlp_plain(*ops), iters=10)
-
-        def dense_fwd():  # what mlp_impl='dense' runs (cuBLAS, unfused)
-            xn = F.layer_norm(x, (d,), g, bt, 1e-5)
-            return F.linear(F.gelu(F.linear(xn, w1, b1)), w2, b2)
-
-        dense_ms = cuda_ms(dense_fwd, iters=10)
-        name = str(dtype).split(".")[-1]
+        err, rel = rel_err(got, want)
+        ms = cuda_ms(lambda: fused_ln_mlp_fwd_cuda(*ops), iters=10)
+        plain_ms = cuda_ms(lambda: fused_ln_mlp_fwd_plain(*ops), iters=10)
+        with torch.no_grad():
+            dense_ms = cuda_ms(dense_mlp(ops, 0.0, seed)[1], iters=10)
+        name = dtype_name(dtype)
         ok = rel <= tol and bool(torch.isfinite(got).all())
         print(f"phase 3 fused_ln_mlp {name}: max_abs_err={err:.3e} "
               f"rel_err={rel:.3e} (tol {tol:g}) kernel_ms={ms:.4f} "
@@ -187,6 +262,209 @@ def phase_mlp(dev, seed: int) -> dict:
         require(ok, f"fused_ln_mlp kernel disagrees in {name}")
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
     return out
+
+
+def phase_mlp_train(dev, seed: int) -> dict:
+    """Kernel 2 at rate 0.1 with u saved, at the SSL step's token counts."""
+    rng = np.random.default_rng(seed + 4)
+    out = {}
+    for crops, t in SSL_T.items():
+        arrs = mlp_arrays(rng, t)
+        for dtype, tol in TOLS:
+            ops = on_card(arrs, dev, dtype)
+            kw = dict(rate=0.1, seed=DROP_SEED, save_u=True)
+            got, u = fused_ln_mlp_fwd_cuda(*ops, **kw)
+            want, u_want = fused_ln_mlp_fwd_plain(*ops, **kw)
+            torch.cuda.synchronize()
+            m2 = dropout_mask(t, 768, DROP_SEED, 0.1, 1, dtype, dev)
+            y0, _ = fused_ln_mlp_fwd_plain(*ops)
+            masks = mask_matches(got, m2, y0) and mask_matches(want, m2, y0)
+            err, rel = rel_err(got, want)
+            _, rel_u = rel_err(u, u_want)
+            ms = cuda_ms(lambda: fused_ln_mlp_fwd_cuda(*ops, **kw), iters=10)
+            plain_ms = cuda_ms(lambda: fused_ln_mlp_fwd_plain(*ops, **kw),
+                               iters=5)
+            with torch.no_grad():
+                dense_ms = cuda_ms(dense_mlp(ops, 0.1, seed)[1], iters=10)
+            name = dtype_name(dtype)
+            ok = (masks and rel <= tol and rel_u <= tol
+                  and bool(torch.isfinite(got).all()))
+            print(f"phase 6 fused_ln_mlp dropout+u {crops} T={t} {name}: "
+                  f"mask_bit_identical={masks} max_abs_err={err:.3e} "
+                  f"rel_err={rel:.3e} u_rel_err={rel_u:.3e} (tol {tol:g}) "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"dense_ms={dense_ms:.4f} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            require(ok, f"kernel 2 with dropout disagrees ({crops}, {name})")
+            out[(crops, name)] = dict(max_abs_err=err, ms=ms,
+                                      plain_ms=plain_ms, dense_ms=dense_ms)
+    return out
+
+
+def phase_mlp_bwd(dev, seed: int) -> dict:
+    """Kernel 3 against its plain version, rates 0 and 0.1."""
+    rng = np.random.default_rng(seed + 5)
+    names = ("do", "hd", "du", "xn", "dx", "dg", "dbt")
+    out = {}
+    for crops, t in SSL_T.items():
+        arrs = mlp_arrays(rng, t)
+        dy_np = rng.standard_normal((t, 768))
+        for dtype, tol in TOLS:
+            x, g, bt, w1, b1, w2, b2 = ops = on_card(arrs, dev, dtype)
+            dy = torch.from_numpy(dy_np.astype(np.float32)).to(dev, dtype)
+            _, u = fused_ln_mlp_fwd_plain(*ops, save_u=True)
+            for rate in (0.0, 0.1):
+                bw = (x, u, dy, g, bt, w1, w2)
+                kw = dict(rate=rate, seed=DROP_SEED)
+                got = fused_ln_mlp_bwd_cuda(*bw, **kw)
+                want = fused_ln_mlp_bwd_plain(*bw, **kw)
+                torch.cuda.synchronize()
+                errs = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
+                masks = True
+                if rate:
+                    m1 = dropout_mask(t, 2048, DROP_SEED, rate, 0, dtype, dev)
+                    m2 = dropout_mask(t, 768, DROP_SEED, rate, 1, dtype, dev)
+                    h0 = F.gelu(u.float()).to(dtype)
+                    masks = all(mask_matches(o[0], m2, dy)
+                                and mask_matches(o[1], m1, h0)
+                                for o in (got, want))
+                ms = cuda_ms(lambda: fused_ln_mlp_bwd_cuda(*bw, **kw), iters=10)
+                plain_ms = cuda_ms(lambda: fused_ln_mlp_bwd_plain(*bw, **kw),
+                                   iters=5)
+                # the whole fused backward: kernel 3 + dW1, dW2, db1, db2
+                leaves = [a.detach().requires_grad_() for a in ops]
+                y = FusedLNMLP.apply(*leaves, 1e-5, rate, DROP_SEED)
+                fused_ms = cuda_ms(lambda: torch.autograd.grad(
+                    y, leaves, dy, retain_graph=True), iters=10)
+                ff, fwd = dense_mlp(leaves, rate, seed)
+                xl = leaves[0]
+                yd = fwd()
+                dense_ms = cuda_ms(lambda: torch.autograd.grad(
+                    yd, [xl, *leaves[1:3], *ff.parameters()], dy,
+                    retain_graph=True), iters=10)
+                del y, yd
+                name = dtype_name(dtype)
+                worst = max(r for _, r in errs.values())
+                ok = (masks and worst <= tol
+                      and all(bool(torch.isfinite(a).all()) for a in got))
+                print(f"phase 7 fused_ln_mlp_bwd {crops} T={t} {name} "
+                      f"rate={rate}: mask_bit_identical={masks} rel_err "
+                      + " ".join(f"{n}={r:.2e}" for n, (_, r) in errs.items())
+                      + f" (tol {tol:g}) kernel_ms={ms:.4f} "
+                      f"kernel_plus_wgrad_ms={fused_ms:.4f} "
+                      f"plain_ms={plain_ms:.4f} dense_bwd_ms={dense_ms:.4f} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                require(ok, f"kernel 3 disagrees ({crops}, {name}, {rate})")
+                out[(crops, name, rate)] = dict(
+                    max_abs_err=max(e for e, _ in errs.values()), ms=ms,
+                    plain_ms=plain_ms, dense_ms=dense_ms, fused_ms=fused_ms)
+    return out
+
+
+def ssl_cfg(config: str, rate: float = 0.1) -> SSLConfig:
+    """The SSL recipe at full width (bench.py's flagship cell; moments in
+    bf16 as the CLI's default, the head and landmark CNN in fp32)."""
+    gather_impl, mlp_impl = CONFIGS[config]
+    model = PartFViTConfig(with_land=False, loss_type="None", num_classes=0,
+                           gather_impl=gather_impl, mlp_impl=mlp_impl,
+                           dropout=rate, emb_dropout=rate,
+                           drop_path_rate=rate)
+    return SSLConfig(model=model, compute_dtype=torch.bfloat16,
+                     head_dtype=torch.float32, landmark_dtype=torch.float32,
+                     moment_dtype=torch.bfloat16)
+
+
+def ssl_crops(dev, seed: int):
+    """Synthetic (clean, augmented) crops in [-1, 1], made on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+
+    def crops(n):
+        return torch.rand((n, SSL_BATCH, 112, 112, 3), generator=gen,
+                          device=dev) * 2 - 1
+    return crops(2), crops(2), crops(8), crops(8)
+
+
+def phase_ssl(dev, seed: int) -> dict:
+    state0 = create_ssl_state(ssl_cfg("kernel"), seed, dev)
+    land = create_landmark_provider(ssl_cfg("kernel"), seed + 1, dev)
+    batch = ssl_crops(dev, seed)
+    n_params = sum(p.numel() for p in state0.student.values())
+    g_key = "head.last_layer.weight_g"
+    out = dict(state0=state0, land=land, batch=batch)
+    for config in CONFIGS:
+        step = make_ssl_train_step(ssl_cfg(config))
+        state = state0
+        torch.cuda.reset_peak_memory_stats()
+        if config == "kernel":
+            _build.LAUNCHES.clear()
+        for _ in range(3):
+            state, m = step(state, land, *batch, **SSL_ARGS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            state, m = step(state, land, *batch, **SSL_ARGS)
+        loss = m["loss"].item()
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / 10
+        if config == "kernel":
+            out["launches"] = dict(_build.LAUNCHES)
+        # the gated gain: AdamW sees a zero gradient, so it moves by
+        # p - lr·(wd·p) per step alone (the JAX tail's decay of it)
+        g_want = state0.student[g_key].clone()
+        lr, wd = (float(np.float32(SSL_ARGS[k])) for k in ("lr", "wd"))
+        for _ in range(13):
+            g_want = g_want - lr * (wd * g_want)
+        g_ok = torch.allclose(state.student[g_key], g_want, rtol=1e-6, atol=0)
+        key = "backbone.transformer.layers.0.1.fn.fn.net.0.weight"
+        moved = (not torch.equal(state.teacher[key], state0.teacher[key])
+                 and state.center.abs().sum().item() > 0)
+        ok = np.isfinite(loss) and moved and g_ok and state.step == 13
+        out[config] = dict(step_ms=step_s * 1e3, imgs_per_s=SSL_BATCH / step_s,
+                           loss=loss)
+        print(f"phase 8 ssl {config}: {n_params / 1e6:.1f} M params, "
+              f"step_ms={step_s * 1e3:.2f} imgs_per_s={SSL_BATCH / step_s:.1f}"
+              f" loss_after_13_steps={loss:.5f} teacher_and_center_moved="
+              f"{moved} weight_g_by_decay_only={g_ok} peak_mem_gb="
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        require(ok, f"SSL step checks failed ({config})")
+        del state, m
+    missing = [k for k in KERNELS if out["launches"].get(k, 0) == 0]
+    print(f"phase 8 ssl launches on the kernel configuration's 13 steps: "
+          f"{out['launches']} {'FAIL' if missing else 'ok'}", flush=True)
+    require(not missing, f"the SSL path never launched {missing}")
+    return out
+
+
+def phase_ssl_agree(dev, ssl: dict) -> None:
+    """One step's loss and gradients, both configurations at every rate 0,
+    from the same state and the same tokens."""
+    state0, land, batch = ssl["state0"], ssl["land"], ssl["batch"]
+    steps = {c: make_ssl_train_step(ssl_cfg(c, 0.0)) for c in CONFIGS}
+    s_land, s_glob, s_loc = step_seeds(state0.seed, state0.step)
+    g_in, l_in = steps["kernel"].make_tokens(
+        land, *batch, torch.Generator(device=dev).manual_seed(s_land))
+    res = {}
+    for c, st in steps.items():
+        t_out = st.teacher_forward(state0, g_in)
+        loss, _, grads = st.student_loss_and_grads(
+            state0, g_in, l_in, t_out, SSL_ARGS["teacher_temp"],
+            (s_glob, s_loc))
+        res[c] = (loss.item(), grads)
+    (lk, gk), (lp, gp) = res["kernel"], res["plain"]
+    rel = abs(lk - lp) / abs(lp)
+    cos = {}
+    for n in gk:
+        a, b = gk[n].double().flatten(), gp[n].double().flatten()
+        na, nb = a.norm().item(), b.norm().item()
+        cos[n] = 1.0 if na == nb == 0 else (a @ b).item() / max(na * nb, 1e-300)
+    worst = min(cos, key=cos.get)
+    ok = rel <= 1e-2 and cos[worst] >= 0.99
+    print(f"phase 8 ssl kernel-vs-plain at rate 0: loss {lk:.6f} vs {lp:.6f} "
+          f"(rel {rel:.2e}, tol 1e-2); gradient cosine min {cos[worst]:.6f} "
+          f"({worst}) over {len(cos)} leaves (tol 0.99) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, "SSL kernel and plain configurations disagree")
 
 
 def full_width(gather_impl: str, mlp_impl: str) -> PartFViT:
@@ -264,6 +542,101 @@ def phase_profile(dev, seed: int, state: dict, path: str) -> None:
         del model
 
 
+# kinds of device kernels, matched in order against the profiler's names
+KINDS = (
+    ("kernel 3 fused MLP backward", ("ln_mlp_bwd_",)),
+    ("kernel 2 fused MLP forward", ("ln_mlp_bf16_kernel", "ln_mlp_f32_kernel")),
+    ("kernel 1 patch gather", ("patch_gather",)),
+    ("cuBLAS/CUTLASS GEMM", ("gemm", "nvjet", "xmma", "cutlass", "s1688",
+                             "s16816", "wgmma", "splitKreduce")),
+    ("cuDNN convolution", ("conv", "implicit_convolve", "dgrad", "wgrad")),
+    ("softmax", ("softmax",)),
+    ("layer norm", ("layer_norm",)),
+    ("batch norm", ("batch_norm", "bn_fw")),
+    ("optimizer tail (foreach)", ("foreach", "multi_tensor")),
+    ("reductions", ("reduce",)),
+    ("random (dropout masks)", ("philox", "random", "distribution")),
+    ("elementwise, copies", ("elementwise", "vectorized", "copy", "Memcpy",
+                             "Memset", "unrolled", "cat", "index", "gather",
+                             "scatter", "where")),
+)
+
+
+def by_kind(kernels, steps: int) -> dict:
+    """Device ms per step summed by kind of kernel."""
+    out = {}
+    for e in kernels:
+        kind = next((k for k, keys in KINDS
+                     if any(key in e.key for key in keys)), "other")
+        out[kind] = out.get(kind, 0.0) + e.self_device_time_total / steps / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def ssl_parts_ms(step, state, land, batch) -> dict:
+    """One SSL step timed part by part with CUDA events."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    s_land, s_glob, s_loc = step_seeds(state.seed, state.step)
+    gen = torch.Generator(device=state.center.device).manual_seed(s_land)
+    ev[0].record()
+    g_in, l_in = step.make_tokens(land, *batch, gen)
+    ev[1].record()
+    t_out = step.teacher_forward(state, g_in)
+    ev[2].record()
+    _, _, grads = step.student_loss_and_grads(
+        state, g_in, l_in, t_out, SSL_ARGS["teacher_temp"], (s_glob, s_loc))
+    ev[3].record()
+    step.tail(state, grads, SSL_ARGS["lr"], SSL_ARGS["wd"],
+              SSL_ARGS["momentum"], SSL_ARGS["freeze_last"])
+    ev[4].record()
+    torch.cuda.synchronize()
+    names = ("tokens", "teacher_fwd", "student_fwd_bwd", "tail")
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def phase_ssl_profile(dev, ssl: dict, path: str) -> None:
+    """Two profiled SSL steps per configuration after a warm-up step: the
+    device time by kernel (table in DIR) and by kind, busy and idle share
+    against the CUDA-event wall time, and one step timed part by part."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(path, exist_ok=True)
+    state0, land, batch = ssl["state0"], ssl["land"], ssl["batch"]
+    for config in CONFIGS:
+        step = make_ssl_train_step(ssl_cfg(config))
+        state, _ = step(state0, land, *batch, **SSL_ARGS)
+        parts = ssl_parts_ms(step, state, land, batch)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        s = state
+        for _ in range(2):
+            s, _ = step(s, land, *batch, **SSL_ARGS)
+        end.record()
+        torch.cuda.synchronize()
+        wall = start.elapsed_time(end) / 2
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            s = state
+            for _ in range(2):
+                s, _ = step(s, land, *batch, **SSL_ARGS)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kernels) / 2 / 1e3
+        with open(os.path.join(path, f"profile_ssl_{config}.txt"), "w") as f:
+            f.write(events.table(sort_by="self_device_time_total",
+                                 row_limit=120))
+        require(busy > 0, f"the profiler saw no device time for SSL {config}")
+        kinds = " ".join(f"{k}={v:.2f}" for k, v in by_kind(kernels, 2).items())
+        part_txt = " ".join(f"{k}={v:.2f}" for k, v in parts.items())
+        print(f"phase P profile ssl {config}: wall_ms={wall:.3f} "
+              f"busy_ms={busy:.3f} idle={1 - busy / wall:.3f}; parts_ms "
+              f"{part_txt}; device_ms_by_kind {kinds} -> {path}", flush=True)
+        del s, state
+
+
 def phase_serve(dev, seed: int, state: dict) -> dict:
     os.makedirs(WORK, exist_ok=True)
     pth = os.path.join(WORK, "partfvit_b.pth")
@@ -326,7 +699,7 @@ def phase_serve(dev, seed: int, state: dict) -> dict:
     thread.join(timeout=120)
     if thread.is_alive() or errors:
         raise RuntimeError(f"server thread did not finish cleanly: {errors}")
-    missing = [k for k in KERNELS if launches.get(k, 0) == 0]
+    missing = [k for k in SERVE_KERNELS if launches.get(k, 0) == 0]
     rates = " ".join(f"{c}: {n} faces in a {SERVE_S:g} s stream, "
                      f"faces_per_s={r:.1f};" for c, (n, r) in served.items())
     print(f"phase 5 served {len(replies)} replies (n=1,64,71): "
@@ -340,7 +713,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="also profile both configurations into DIR")
+                   help="also profile both configurations (serving and SSL) "
+                        "into DIR")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false — "
@@ -359,18 +733,34 @@ def main(argv=None) -> int:
           flush=True)
 
     gather = phase_gather(dev, args.seed)
-    mlp = phase_mlp(dev, args.seed)
+    phase_mlp(dev, args.seed)
     state = init_random_(full_width("kernel", "fused_ln"), args.seed).state_dict()
     phase_model(dev, args.seed, state)
     if args.profile:
         phase_profile(dev, args.seed, state, args.profile)
-    launches = phase_serve(dev, args.seed, state)
+    served = phase_serve(dev, args.seed, state)
+    del state
+    train_fwd = phase_mlp_train(dev, args.seed)
+    train_bwd = phase_mlp_bwd(dev, args.seed)
+    ssl = phase_ssl(dev, args.seed)
+    phase_ssl_agree(dev, ssl)
+    if args.profile:
+        phase_ssl_profile(dev, ssl, args.profile)
 
+    # each kernel's numbers at its main-path shape in bf16: the gather at the
+    # served batch, kernel 2 with dropout and u at the global crops' T,
+    # kernel 3 at rate 0.1 there; launches counted on the SSL steps
+    measured = {"patch_gather": gather["bfloat16"],
+                "fused_ln_mlp": train_fwd[("global", "bfloat16")],
+                "fused_ln_mlp_bwd": train_bwd[("global", "bfloat16", 0.1)]}
     record = {"kernels": [
         dict(name=name, route="cuda", **KERNELS[name],
-             launches=launches[name], max_abs_err=res["bfloat16"]["max_abs_err"],
-             ms=res["bfloat16"]["ms"], plain_ms=res["bfloat16"]["plain_ms"])
-        for name, res in (("patch_gather", gather), ("fused_ln_mlp", mlp))
+             launches=ssl["launches"][name],
+             launches_by_path={"serve": served.get(name, 0),
+                               "ssl": ssl["launches"][name]},
+             max_abs_err=res["max_abs_err"], ms=res["ms"],
+             plain_ms=res["plain_ms"])
+        for name, res in measured.items()
     ]}
     print(json.dumps(record))
     print(card())

@@ -38,15 +38,23 @@ LAUNCHES: Counter = Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# exported C functions → their argument types (all return cudaError_t)
+_U = ctypes.c_uint
+# the dropout arguments of kernels 2 and 3: seed, keep threshold, 1/keep, on
+_DROP = (_U, _U, _F, _I)
+# exported C functions → their argument types (all return cudaError_t but
+# the block count and the error string)
 _SIGNATURES = {
     # img, landmarks, out, B, H, W, C, N, P, img_bf16, lm_bf16, stream
     "lafs_patch_gather": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, g, bt, w1t, b1, w2t, b2, y, T, D, H, eps, stream
-    "lafs_fused_ln_mlp_bf16": (_P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _F, _P),
-    "lafs_fused_ln_mlp_f32": (_P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _F, _P),
+    # x, g, bt, w1t, b1, w2t, b2, y, u (or null), T, D, H, eps, *_DROP, stream
+    "lafs_fused_ln_mlp_bf16": (_P,) * 9 + (_I, _I, _I, _F) + _DROP + (_P,),
+    "lafs_fused_ln_mlp_f32": (_P,) * 9 + (_I, _I, _I, _F) + _DROP + (_P,),
+    # x, u, dy, g, bt, w1t, w2t, do, hd, du, xn, dx, dg_part, db_part,
+    # T, D, H, eps, *_DROP, stream
+    "lafs_fused_ln_mlp_bwd_bf16": (_P,) * 14 + (_I, _I, _I, _F) + _DROP + (_P,),
+    "lafs_fused_ln_mlp_bwd_f32": (_P,) * 14 + (_I, _I, _I, _F) + _DROP + (_P,),
+    # T → rows of the (blocks, D) dγ/dβ partial buffers
+    "lafs_fused_ln_mlp_bwd_blocks": (_I,),
     "lafs_cuda_error_string": (_I,),
 }
 
@@ -74,7 +82,8 @@ def _digest(sources) -> str:
 def library() -> ctypes.CDLL:
     """The built kernel library (built on the first call of a process)."""
     sources = sorted(CSRC.glob("*.cu"))
-    out = BUILD_DIR / f"liblafs_kernels-{_digest(sources)}.so"
+    headers = sorted(CSRC.glob("*.cuh"))
+    out = BUILD_DIR / f"liblafs_kernels-{_digest(sources + headers)}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")

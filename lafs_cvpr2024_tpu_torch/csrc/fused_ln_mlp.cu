@@ -1,28 +1,35 @@
-// LayerNorm-fused transformer MLP, forward at dropout rate 0 (kernel 2 of
-// the PyTorch/CUDA port).
+// LayerNorm-fused transformer MLP forward with dropout (kernel 2 of the
+// PyTorch/CUDA port).
 //
 // Replaces the Pallas TPU kernel lafs_cvpr2024_tpu/ops/fused_mlp.py
 // (_ln_fwd_kernel, called from _ln_fwd_call):
 //     xn = LN(x; g, bt) in fp32 (eps), cast to the input dtype
-//     u  = xn @ W1 + b1            (fp32 accumulate)
-//     h  = gelu(u), exact erf form, cast to the input dtype
-//     y  = h @ W2 + b2             (fp32 accumulate), cast to the input dtype
+//     u  = xn @ W1 + b1            (fp32 accumulate), optionally saved
+//     h  = drop_0(gelu(u)), exact erf form, cast to the input dtype
+//     y  = drop_1(h @ W2 + b2)     (fp32 accumulate), cast to the input dtype
 // The weights come in PyTorch's nn.Linear layout: w1t is (H, D), w2t is
-// (D, H), both row-major; all tensors share the input dtype.
+// (D, H), both row-major; all tensors share the input dtype. The saved
+// pre-activation u (T, H) is stored in the input dtype, as the JAX kernel
+// saves it, for the backward kernel (fused_ln_mlp_bwd.cu). Dropout masks
+// come from the counter hash of fused_ln_mlp_common.cuh, keyed by the
+// global row, so the backward regenerates them and the plain PyTorch
+// version and the JAX CPU reference draw the same bits.
 //
 // What bounds it on the card. At the served shape (T = 25,216 tokens,
 // D = 768, H = 2048) the two products are 159 GFLOP against ~40 MB of
 // activations and 6.3 MB of weights: a tiled GEMM would be bound by
 // operations. This form is bound by L2 traffic of the weights instead. What
 // the TPU kernel was for, and what this design keeps: the (T, H) hidden
-// activation never reaches device memory. A block owns ROWS token rows; it
-// normalises them into shared memory once, then walks the hidden layer in
-// HC-wide chunks: the chunk of u goes through shared memory (bias + GELU
-// need the element layout that the tensor-core fragments hide), and the
-// chunk's contribution to y is accumulated in tensor-core fragments that
-// stay in registers for the whole loop. That register-resident (ROWS, 768)
-// fp32 accumulator caps ROWS at 32, so every block re-reads both weight
-// matrices from L2 (~5 GB per call at the served shape).
+// activation never reaches device memory (unless u is saved for training).
+// A block owns ROWS token rows; it normalises them into shared memory once,
+// then walks the hidden layer in HC-wide chunks: the chunk of u goes
+// through shared memory (bias, GELU and the mask need the element layout
+// that the tensor-core fragments hide), and the chunk's contribution to y
+// is accumulated in tensor-core fragments that stay in registers for the
+// whole loop. That register-resident (ROWS, 768) fp32 accumulator caps ROWS
+// at 32, so every block re-reads both weight matrices from L2 (~5 GB per
+// call at the served shape). Saving u adds T*H*2 bytes of stores (52 MB at
+// the global crops' T = 12,608 in bf16), written from the same pass.
 //
 // bf16 runs on the tensor cores through nvcuda::wmma (16x16x16, fp32
 // accumulate): simple and right, not yet the wgmma/TMA pipeline that
@@ -33,38 +40,14 @@
 // the exact erff. The ragged last row tile is masked: rows past T are
 // normalised as zeros and never stored.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
+
+#include "fused_ln_mlp_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace lafs_mlp;
 using namespace nvcuda;
-
-constexpr int ROWS = 32;      // token rows per block
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int HC = 128;       // hidden chunk of the bf16 kernel
-constexpr int F_HC = 32;      // hidden chunk of the fp32 kernel
-constexpr int F_MAX_D = 768;  // fp32 kernel: each thread owns D/256 columns
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(bf16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float gelu(float u) {
-  return 0.5f * u * (1.0f + erff(u * 0.70710678118654752f));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // LayerNorm of the block's ROWS rows into shared memory (row stride ld),
 // in fp32 with the same two-pass statistics as the TPU kernel; one warp
@@ -82,15 +65,8 @@ __device__ void layer_norm_rows(const T* __restrict__ x, const T* __restrict__ g
       continue;
     }
     const T* src = x + row * D;
-    float s = 0.0f;
-    for (int k = lane; k < D; k += 32) s += to_f32(src[k]);
-    const float mean = warp_sum(s) / (float)D;
-    float v = 0.0f;
-    for (int k = lane; k < D; k += 32) {
-      const float d = to_f32(src[k]) - mean;
-      v += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(v) / (float)D + eps);
+    float mean, rstd;
+    row_stats(src, D, eps, lane, &mean, &rstd);
     for (int k = lane; k < D; k += 32) {
       const float xh = (to_f32(src[k]) - mean) * rstd;
       store(dst + k, xh * to_f32(g[k]) + to_f32(bt[k]));
@@ -115,13 +91,16 @@ struct Bf16Layout {
   static constexpr int SMEM = MAIN > OS ? MAIN : OS;
 };
 
-template <int NT>
+// TRAIN = dropout on or u saved. The served path (rate 0, no u) runs the
+// TRAIN = false instance, which carries neither branch nor their registers.
+template <int NT, bool TRAIN>
 __global__ void __launch_bounds__(THREADS)
 ln_mlp_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
                    const bf16* __restrict__ bt, const bf16* __restrict__ w1t,
                    const bf16* __restrict__ b1, const bf16* __restrict__ w2t,
-                   const bf16* __restrict__ b2, bf16* __restrict__ y, int T_rows,
-                   int H, float eps) {
+                   const bf16* __restrict__ b2, bf16* __restrict__ y,
+                   bf16* __restrict__ u_out, int T_rows, int H, float eps,
+                   Dropout drop) {
   using L = Bf16Layout<NT>;
   constexpr int D = L::D;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -166,8 +145,12 @@ ln_mlp_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
     __syncthreads();
     for (int e = threadIdx.x; e < ROWS * HC; e += THREADS) {
       const int r = e / HC, c = e % HC;
+      const long long row = row0 + r;
       const float u = us[r * L::LDU + c] + to_f32(b1[h0 + c]);
-      store(hs + r * L::LDH + c, gelu(u));
+      if (TRAIN && u_out != nullptr && row < T_rows)
+        store(u_out + row * H + h0 + c, u);
+      const float hv = gelu(u);
+      store(hs + r * L::LDH + c, TRAIN ? drop.apply(hv, row, h0 + c, 0) : hv);
     }
     __syncthreads();
     // acc += h_chunk @ W2[h0 : h0 + HC, this warp's columns]
@@ -200,35 +183,46 @@ ln_mlp_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
   for (int e = threadIdx.x; e < ROWS * D; e += THREADS) {
     const int r = e / D, c = e % D;
     const long long row = row0 + r;
-    if (row < T_rows) store(y + row * D + c, os[r * L::LDO + c] + to_f32(b2[c]));
+    if (row < T_rows) {
+      const float o = os[r * L::LDO + c] + to_f32(b2[c]);
+      store(y + row * D + c, TRAIN ? drop.apply(o, row, c, 1) : o);
+    }
   }
+}
+
+template <int NT, bool TRAIN>
+cudaError_t launch_bf16_as(const void* x, const void* g, const void* bt,
+                           const void* w1t, const void* b1, const void* w2t,
+                           const void* b2, void* y, void* u, int T_rows, int H,
+                           float eps, Dropout drop, cudaStream_t s) {
+  using L = Bf16Layout<NT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      ln_mlp_bf16_kernel<NT, TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::SMEM);
+  if (err != cudaSuccess) return err;
+  const int blocks = (T_rows + ROWS - 1) / ROWS;
+  ln_mlp_bf16_kernel<NT, TRAIN><<<blocks, THREADS, L::SMEM, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(g),
+      static_cast<const bf16*>(bt), static_cast<const bf16*>(w1t),
+      static_cast<const bf16*>(b1), static_cast<const bf16*>(w2t),
+      static_cast<const bf16*>(b2), static_cast<bf16*>(y),
+      static_cast<bf16*>(u), T_rows, H, eps, drop);
+  return cudaGetLastError();
 }
 
 template <int NT>
 cudaError_t launch_bf16(const void* x, const void* g, const void* bt,
                         const void* w1t, const void* b1, const void* w2t,
-                        const void* b2, void* y, int T_rows, int H, float eps,
-                        cudaStream_t s) {
-  using L = Bf16Layout<NT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_mlp_bf16_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
-  if (err != cudaSuccess) return err;
-  const int blocks = (T_rows + ROWS - 1) / ROWS;
-  ln_mlp_bf16_kernel<NT><<<blocks, THREADS, L::SMEM, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(g),
-      static_cast<const bf16*>(bt), static_cast<const bf16*>(w1t),
-      static_cast<const bf16*>(b1), static_cast<const bf16*>(w2t),
-      static_cast<const bf16*>(b2), static_cast<bf16*>(y), T_rows, H, eps);
-  return cudaGetLastError();
+                        const void* b2, void* y, void* u, int T_rows, int H,
+                        float eps, Dropout drop, cudaStream_t s) {
+  if (drop.on || u != nullptr)
+    return launch_bf16_as<NT, true>(x, g, bt, w1t, b1, w2t, b2, y, u, T_rows, H,
+                                    eps, drop, s);
+  return launch_bf16_as<NT, false>(x, g, bt, w1t, b1, w2t, b2, y, u, T_rows, H,
+                                   eps, drop, s);
 }
 
 // ---------------------------------------------------------------- fp32 --
-constexpr int F_MAX_M = F_MAX_D / THREADS;  // columns per thread
-
-__host__ __device__ constexpr int f32_wbuf(int D) {
-  return F_HC * (D + 1) > D * (F_HC + 1) ? F_HC * (D + 1) : D * (F_HC + 1);
-}
-
 __host__ __device__ constexpr int f32_smem_bytes(int D) {
   return (ROWS * D + f32_wbuf(D) + ROWS * F_HC) * 4;
 }
@@ -237,8 +231,9 @@ __global__ void __launch_bounds__(THREADS)
 ln_mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
                   const float* __restrict__ bt, const float* __restrict__ w1t,
                   const float* __restrict__ b1, const float* __restrict__ w2t,
-                  const float* __restrict__ b2, float* __restrict__ y, int T_rows,
-                  int D, int H, float eps) {
+                  const float* __restrict__ b2, float* __restrict__ y,
+                  float* __restrict__ u_out, int T_rows, int D, int H, float eps,
+                  Dropout drop) {
   extern __shared__ __align__(128) float fsm[];
   float* xs = fsm;                   // (ROWS, D)
   float* wb = xs + ROWS * D;         // W1 chunk (F_HC, D+1) or W2 chunk (D, F_HC+1)
@@ -270,8 +265,12 @@ ln_mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
       for (int q = 0; q < 4; ++q) u[q] += xs[(rg * 4 + q) * D + k] * w;
     }
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      hs[(rg * 4 + q) * F_HC + n] = gelu(u[q] + b1[h0 + n]);
+    for (int q = 0; q < 4; ++q) {
+      const long long row = row0 + rg * 4 + q;
+      const float uv = u[q] + b1[h0 + n];
+      if (u_out != nullptr && row < T_rows) u_out[row * H + h0 + n] = uv;
+      hs[(rg * 4 + q) * F_HC + n] = drop.apply(gelu(uv), row, h0 + n, 0);
+    }
     __syncthreads();
     for (int e = tid; e < D * F_HC; e += THREADS) {
       const int c = e / F_HC, nn = e % F_HC;
@@ -297,7 +296,7 @@ ln_mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       const long long row = row0 + r;
-      if (row < T_rows) y[row * D + c] = acc[m][r] + b2[c];
+      if (row < T_rows) y[row * D + c] = drop.apply(acc[m][r] + b2[c], row, c, 1);
     }
   }
 }
@@ -305,22 +304,26 @@ ln_mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
 }  // namespace
 
 // Widths the kernels take: D a multiple of 128 up to 768, H a multiple of
-// 128. The Python wrapper checks the same and raises before calling.
+// 128. The Python wrapper checks the same and raises before calling. `u`
+// may be null (no saved pre-activation); `drop` = 0 turns dropout off, and
+// then seed, thresh and inv_keep are not read.
 extern "C" int lafs_fused_ln_mlp_bf16(const void* x, const void* g, const void* bt,
                                       const void* w1t, const void* b1,
                                       const void* w2t, const void* b2, void* y,
-                                      int T_rows, int D, int H, float eps,
-                                      void* stream) {
+                                      void* u, int T_rows, int D, int H,
+                                      float eps, unsigned seed, unsigned thresh,
+                                      float inv_keep, int drop, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (T_rows <= 0) return cudaSuccess;
   if (H % HC) return cudaErrorInvalidValue;
+  const Dropout dr = make_dropout(seed, thresh, inv_keep, drop, 128);
   switch (D) {
-    case 128: return launch_bf16<1>(x, g, bt, w1t, b1, w2t, b2, y, T_rows, H, eps, s);
-    case 256: return launch_bf16<2>(x, g, bt, w1t, b1, w2t, b2, y, T_rows, H, eps, s);
-    case 384: return launch_bf16<3>(x, g, bt, w1t, b1, w2t, b2, y, T_rows, H, eps, s);
-    case 512: return launch_bf16<4>(x, g, bt, w1t, b1, w2t, b2, y, T_rows, H, eps, s);
-    case 640: return launch_bf16<5>(x, g, bt, w1t, b1, w2t, b2, y, T_rows, H, eps, s);
-    case 768: return launch_bf16<6>(x, g, bt, w1t, b1, w2t, b2, y, T_rows, H, eps, s);
+    case 128: return launch_bf16<1>(x, g, bt, w1t, b1, w2t, b2, y, u, T_rows, H, eps, dr, s);
+    case 256: return launch_bf16<2>(x, g, bt, w1t, b1, w2t, b2, y, u, T_rows, H, eps, dr, s);
+    case 384: return launch_bf16<3>(x, g, bt, w1t, b1, w2t, b2, y, u, T_rows, H, eps, dr, s);
+    case 512: return launch_bf16<4>(x, g, bt, w1t, b1, w2t, b2, y, u, T_rows, H, eps, dr, s);
+    case 640: return launch_bf16<5>(x, g, bt, w1t, b1, w2t, b2, y, u, T_rows, H, eps, dr, s);
+    case 768: return launch_bf16<6>(x, g, bt, w1t, b1, w2t, b2, y, u, T_rows, H, eps, dr, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -328,8 +331,9 @@ extern "C" int lafs_fused_ln_mlp_bf16(const void* x, const void* g, const void* 
 extern "C" int lafs_fused_ln_mlp_f32(const void* x, const void* g, const void* bt,
                                      const void* w1t, const void* b1,
                                      const void* w2t, const void* b2, void* y,
-                                     int T_rows, int D, int H, float eps,
-                                     void* stream) {
+                                     void* u, int T_rows, int D, int H,
+                                     float eps, unsigned seed, unsigned thresh,
+                                     float inv_keep, int drop, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (T_rows <= 0) return cudaSuccess;
   if (D % 128 || D > F_MAX_D || H % F_HC) return cudaErrorInvalidValue;
@@ -342,6 +346,8 @@ extern "C" int lafs_fused_ln_mlp_f32(const void* x, const void* g, const void* b
       static_cast<const float*>(x), static_cast<const float*>(g),
       static_cast<const float*>(bt), static_cast<const float*>(w1t),
       static_cast<const float*>(b1), static_cast<const float*>(w2t),
-      static_cast<const float*>(b2), static_cast<float*>(y), T_rows, D, H, eps);
+      static_cast<const float*>(b2), static_cast<float*>(y),
+      static_cast<float*>(u), T_rows, D, H, eps,
+      make_dropout(seed, thresh, inv_keep, drop, 64));
   return cudaGetLastError();
 }

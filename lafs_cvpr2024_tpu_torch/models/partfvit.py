@@ -1,11 +1,13 @@
 """Part-fViT, the landmark-conditioned face ViT (counterpart of
-``lafs_cvpr2024_tpu/models/partfvit.py``), eval only.
+``lafs_cvpr2024_tpu/models/partfvit.py``).
 
-Ported: the ``with_land`` image path (MobileNetV3 landmark regressor →
-min-max rescale → patch gather at the landmarks → transformer → LayerNorm
-of the CLS token) and the pre-gathered token path. The other variants
-(standcoord, raw patchify, global token, SimMIM, margin heads) raise and
-are queued in ROADMAP.md.
+Ported: the ``with_land`` image path in eval mode (MobileNetV3 landmark
+regressor → min-max rescale → patch gather at the landmarks → transformer →
+LayerNorm of the CLS token), the pre-gathered token path in eval and
+training mode (the SSL path: embedding dropout, dropout and drop path drawn
+from a :class:`~.layers.DropoutRNG`), and the SSL ``LandmarkProvider``. The
+other variants (standcoord, raw patchify, global token, SimMIM, margin
+heads, ``random_coor``) raise and are queued in ROADMAP.md.
 
 Module names follow the reference ``state_dict``: the landmark stem sits at
 the top level as ``stn.*`` and ``output_layer.*`` (the JAX package nests
@@ -22,7 +24,7 @@ import torch
 from torch import nn
 
 from ..ops.patch_gather import patch_gather
-from .layers import Transformer
+from .layers import DropoutRNG, FastDropout, Transformer
 from .mobilenet import MobileNetV3Backbone
 
 
@@ -101,9 +103,45 @@ class LandmarkRegressor(nn.Module):
                                  self.num_landmarks, self.coord_scale)
 
 
+class LandmarkProvider(LandmarkRegressor):
+    """Frozen landmark CNN of the SSL step (``partfvit.py:303-364``): image
+    → (theta, patch tokens). Landmarks come from the CLEAN view ``x``, the
+    patches from the augmented view ``x_aug``; ``jitter_std`` adds
+    N(0, jitter_std²) px noise and ``ran_sample`` keeps that many landmarks
+    drawn with replacement, both from ``generator`` (on x's device). Same
+    ``stn.*``/``output_layer.*`` keys as :class:`LandmarkRegressor`; call it
+    in eval mode under ``torch.no_grad()``."""
+
+    def __init__(self, num_landmarks: int = 196, patch_size: int = 8,
+                 stn_mode: str = "large", coord_scale: float = 111.0,
+                 gather_impl: str = "kernel"):
+        super().__init__(num_landmarks, stn_mode, coord_scale)
+        self.patch_size, self.gather_impl = patch_size, gather_impl
+
+    def forward(self, x, x_aug=None, generator=None, jitter_std: float = 0.0,
+                ran_sample: int = 0, random_coor: bool = False):
+        if random_coor:
+            raise NotImplementedError(
+                "random_coor landmarks are not ported yet (ROADMAP.md, Open "
+                "items 1.4)")
+        theta, _ = super().forward(x)
+        if jitter_std > 0:
+            theta = theta + jitter_std * torch.randn(
+                theta.shape, generator=generator, device=theta.device,
+                dtype=theta.dtype)
+        if ran_sample:
+            idx = torch.randint(0, theta.shape[1], (x.shape[0], ran_sample),
+                                generator=generator, device=theta.device)
+            theta = torch.gather(theta, 1, idx[..., None].expand(-1, -1, 2))
+        src = x if x_aug is None else x_aug
+        return theta, patch_gather(src, theta, self.patch_size,
+                                   impl=self.gather_impl)
+
+
 class PartFViT(nn.Module):
     """Images (B, H, W, C) NHWC, or pre-gathered tokens (B, N, P·P·C) →
-    (B, dim) embeddings."""
+    (B, dim) embeddings. Training mode takes tokens only, and a
+    :class:`~.layers.DropoutRNG` when any rate is above 0."""
 
     def __init__(self, cfg: PartFViTConfig):
         super().__init__()
@@ -126,9 +164,10 @@ class PartFViT(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.dim))
         self.pos_embedding = nn.Parameter(
             torch.zeros(1, cfg.num_patches + 1, cfg.dim))
+        self.emb_dropout = FastDropout(cfg.emb_dropout)
         self.transformer = Transformer(
             cfg.dim, cfg.depth, cfg.heads, cfg.dim_head, cfg.mlp_dim,
-            cfg.dropout, cfg.attn_impl, cfg.mlp_impl,
+            cfg.dropout, cfg.drop_path_rate, cfg.attn_impl, cfg.mlp_impl,
         )
         self.mlp_head = nn.Sequential(nn.LayerNorm(cfg.dim, eps=1e-5))
 
@@ -139,14 +178,16 @@ class PartFViT(nn.Module):
                                      float(self.cfg.image_size - 1))
         return theta
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         cfg = self.cfg
-        if self.training:
-            raise NotImplementedError(
-                "PartFViT is ported for eval only (call .eval()); training "
-                "comes with the train-step port (ROADMAP.md, Open items 1.7)"
-            )
         if x.ndim == 4:
+            if self.training:
+                raise NotImplementedError(
+                    "the image path is ported for eval only (call .eval()); "
+                    "training with landmarks comes with supervised "
+                    "finetuning (ROADMAP.md, Open items 1.11)"
+                )
             if not cfg.with_land:
                 raise NotImplementedError(
                     "raw-patchify image input (with_land=False) is not "
@@ -160,7 +201,7 @@ class PartFViT(nn.Module):
         b, n, _ = tokens.shape
         h = torch.cat([self.cls_token.expand(b, -1, -1), tokens], dim=1)
         h = h + self.pos_embedding[:, : n + 1]
-        h = self.transformer(h)
+        h = self.transformer(self.emb_dropout(h, rng), rng)
         pooled = h.mean(dim=1) if cfg.pool == "mean" else h[:, 0]
         return self.mlp_head(pooled)
 

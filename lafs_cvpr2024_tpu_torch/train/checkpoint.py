@@ -4,8 +4,11 @@
 :func:`state_dict_from_flax` turns a JAX Part-fViT tree, given as nested
 dicts of numpy arrays, into the reference ``state_dict`` dialect the port's
 modules carry — the same keys, layouts and values as the JAX package's
-``export_torch_state_dict`` (``train/checkpoint.py:1150-1247``). It is
-numpy-only; :func:`to_tensors` makes ``torch`` tensors of the result.
+``export_torch_state_dict`` (``train/checkpoint.py:1150-1247``), a DINO
+head under ``head`` included. It is numpy-only; :func:`to_tensors` makes
+``torch`` tensors of the result. :func:`ssl_state_from_flax` turns a whole
+JAX ``SSLTrainState`` into the port's, so both packages can start from one
+state.
 """
 
 from __future__ import annotations
@@ -132,6 +135,26 @@ def _transformer(rest: Tuple[str, ...], arr, out) -> bool:
     return False
 
 
+def _dino_head(rest: Tuple[str, ...], arr, out) -> bool:
+    """(mlp_i | last_layer_g | last_layer_v, …) under ``head`` →
+    ``head.mlp.{2i}.*`` (Linear layers at 0/2/4 with GELUs between) and the
+    weight-norm ``head.last_layer.weight_{g,v}`` (JAX
+    ``_export_dino_head``, ``train/checkpoint.py:1131-1147``)."""
+    m = re.match(r"mlp_(\d+)$", rest[0])
+    if m and len(rest) == 2 and rest[1] in _DENSE_LEAF:
+        leaf = _DENSE_LEAF[rest[1]]
+        out[f"head.mlp.{2 * int(m.group(1))}.{leaf}"] = (
+            arr.T if leaf == "weight" else arr)
+        return True
+    if rest == ("last_layer_g",):
+        out["head.last_layer.weight_g"] = arr.reshape(-1, 1)
+        return True
+    if rest == ("last_layer_v",):
+        out["head.last_layer.weight_v"] = arr
+        return True
+    return False
+
+
 def state_dict_from_flax(params: Dict[str, Any],
                          batch_stats: Optional[Dict[str, Any]] = None
                          ) -> Dict[str, np.ndarray]:
@@ -169,6 +192,8 @@ def state_dict_from_flax(params: Dict[str, Any],
             elif path[0] == "mlp_head" and path[1] in ("scale", "bias"):
                 out[f"mlp_head.0.{_BN_LEAF[path[1]]}"] = arr
                 ok = True
+            elif path[0] == "head" and len(path) > 1:
+                ok = _dino_head(path[1:], arr, out)
             if not ok:
                 unmapped.append(f"{col}/" + "/".join(path))
     if unmapped:
@@ -180,6 +205,59 @@ def state_dict_from_flax(params: Dict[str, Any],
         out[k[: -len("running_mean")] + "num_batches_tracked"] = np.array(
             0, np.int64)
     return out
+
+
+def _student_dict(tree, what: str):
+    """JAX ``{"backbone": …, "head": …}`` → the port's flat
+    ``backbone.*``/``head.*`` dict of tensors, in the leaves' own dtype
+    (bfloat16 leaves stay bfloat16)."""
+    import torch
+
+    if set(tree) != {"backbone", "head"}:
+        raise ValueError(f"ssl_state_from_flax: {what} has keys {sorted(tree)}"
+                         ", not {'backbone', 'head'}")
+    leaves = _flatten(tree)
+    bf16 = {np.asarray(v).dtype.name == "bfloat16" for v in leaves.values()}
+    if len(bf16) > 1:
+        raise ValueError(f"ssl_state_from_flax: {what} mixes bfloat16 and "
+                         "other leaves")
+    sd = state_dict_from_flax({**tree["backbone"], "head": tree["head"]})
+    out = {(k if k.startswith("head.") else f"backbone.{k}"): v
+           for k, v in to_tensors(sd).items()}
+    return {k: v.to(torch.bfloat16) if bf16 == {True} else v
+            for k, v in out.items()}
+
+
+def ssl_state_from_flax(state, seed: int = 0, device=None):
+    """A JAX ``SSLTrainState`` with numpy leaves → the port's
+    ``train.ssl.SSLTrainState``: student and teacher (backbone + DINO
+    head), the AdamW moments under the student's keys and layouts (the
+    layout maps are permutations, so they move moments as they move
+    weights), the count, the center and the step. The port's step derives
+    its randomness from ``seed``, not from the JAX key. Unmapped paths
+    raise; the step's ``functional_call(strict=True)`` checks the keys
+    against its modules."""
+    import torch
+
+    from .optim import AdamWState
+    from .ssl import SSLTrainState
+
+    if state.stats not in ((), None, {}):
+        raise ValueError("ssl_state_from_flax: BatchNorm stats (BN archs, "
+                         "use_bn_in_head) are not ported")
+
+    def dev(tree):
+        return {k: v.to(device) for k, v in tree.items()}
+
+    opt = state.opt_state
+    return SSLTrainState(
+        student=dev(_student_dict(state.student, "student")),
+        teacher=dev(_student_dict(state.teacher, "teacher")),
+        opt_state=AdamWState(count=int(np.asarray(opt.count)),
+                             mu=dev(_student_dict(opt.mu, "mu")),
+                             nu=dev(_student_dict(opt.nu, "nu"))),
+        center=torch.from_numpy(np.array(state.center, np.float32)).to(device),
+        step=int(np.asarray(state.step)), seed=int(seed))
 
 
 def to_tensors(state_dict: Dict[str, np.ndarray]):

@@ -8,9 +8,11 @@ there without the conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: the gather agrees to 1e-5 in fp32 and to one bf16 ulp in bf16
-(the same four-corner sum, contracted to FMAs by nvcc); the MLP to 1e-4
-relative in fp32 and 2e-2 in bf16 (both accumulate in fp32 in another
-order, and a 1-ulp flip of the bf16 hidden activation moves the output).
+(the same four-corner sum, contracted to FMAs by nvcc); the MLP forward
+and backward to 1e-4 relative in fp32 and 2e-2 in bf16 (both accumulate in
+fp32 in another order, and a 1-ulp flip of a bf16 intermediate moves the
+output). Dropout masks are the same bits: the kernels and the plain
+versions hash the same keys.
 """
 
 import numpy as np
@@ -24,8 +26,13 @@ from lafs_cvpr2024_tpu_torch.models.partfvit import (
     init_random_,
 )
 from lafs_cvpr2024_tpu_torch.ops.fused_mlp import (
+    FusedLNMLP,
+    dropout_mask,
     fused_ln_mlp,
-    fused_ln_mlp_plain,
+    fused_ln_mlp_bwd_cuda,
+    fused_ln_mlp_bwd_plain,
+    fused_ln_mlp_fwd_cuda,
+    fused_ln_mlp_fwd_plain,
 )
 from lafs_cvpr2024_tpu_torch.ops.patch_gather import (
     patch_gather,
@@ -91,10 +98,92 @@ def test_fused_ln_mlp_kernel_matches_plain(cuda, dtype, tol, d, h):
     got = fused_ln_mlp(*ops)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["fused_ln_mlp"] == before + 1
-    want = fused_ln_mlp_plain(*ops)
+    want, _ = fused_ln_mlp_fwd_plain(*ops)
     assert got.dtype == dtype and got.shape == want.shape
     assert bool(torch.isfinite(got).all())
     assert _rel(got, want) <= tol
+
+
+def _mlp_operands(cuda, dtype, t, d, h, seed=1):
+    rng = np.random.default_rng(seed)
+    arrs = (rng.standard_normal((t, d)) * 2.0 + 0.5,
+            1.0 + 0.1 * rng.standard_normal(d), 0.1 * rng.standard_normal(d),
+            rng.standard_normal((h, d)) / np.sqrt(d),  # nn.Linear layout
+            0.1 * rng.standard_normal(h),
+            rng.standard_normal((d, h)) / np.sqrt(h),
+            0.1 * rng.standard_normal(d))
+    return [torch.from_numpy(a.astype(np.float32)).to(cuda, dtype)
+            for a in arrs]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d,h", [(128, 256), (768, 2048)])
+def test_fused_ln_mlp_dropout_and_u_match_plain(cuda, dtype, tol, d, h):
+    """Kernel 2 at rate 0.1 with u saved: y and u within tolerance, and
+    the output mask (the zeros of y) the plain version's bit for bit."""
+    ops = _mlp_operands(cuda, dtype, 333, d, h)
+    got, u = fused_ln_mlp_fwd_cuda(*ops, rate=0.1, seed=987654, save_u=True)
+    want, u_want = fused_ln_mlp_fwd_plain(*ops, rate=0.1, seed=987654,
+                                          save_u=True)
+    torch.cuda.synchronize()
+    assert u.dtype == dtype and u.shape == (333, h)
+    assert _rel(got, want) <= tol and _rel(u, u_want) <= tol
+    m2 = dropout_mask(333, d, 987654, 0.1, 1, dtype, cuda)
+    assert torch.equal(got != 0, m2) and torch.equal(want != 0, m2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d,h", [(128, 256), (768, 2048)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_ln_mlp_bwd_kernel_matches_plain(cuda, dtype, tol, d, h, rate):
+    """Kernel 3: do, hd, du, xn, dx, dγ and dβ against the plain version
+    on the same saved u; both masks (the zeros of do and hd) bit for
+    bit."""
+    x, g, bt, w1, b1, w2, b2 = _mlp_operands(cuda, dtype, 333, d, h)
+    _, u = fused_ln_mlp_fwd_plain(x, g, bt, w1, b1, w2, b2, save_u=True)
+    dy = torch.randn(333, d, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(2)).to(dtype)
+    before = _build.LAUNCHES["fused_ln_mlp_bwd"]
+    got = fused_ln_mlp_bwd_cuda(x, u, dy, g, bt, w1, w2, rate=rate, seed=55)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_ln_mlp_bwd"] == before + 1
+    want = fused_ln_mlp_bwd_plain(x, u, dy, g, bt, w1, w2, rate=rate, seed=55)
+    names = ("do", "hd", "du", "xn", "dx", "dg", "dbt")
+    for name, a, b in zip(names, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) <= tol, name
+    if rate:
+        # dropped elements are 0; a kept one is 0 only where the value
+        # before dropout is (GELU rounds to 0 far left of 0)
+        m1 = dropout_mask(333, h, 55, rate, 0, dtype, cuda)
+        m2 = dropout_mask(333, d, 55, rate, 1, dtype, cuda)
+        h0 = torch.nn.functional.gelu(u.float()).to(dtype)
+        assert torch.equal(got[1] != 0, m1 & (h0 != 0))
+        assert torch.equal(got[0] != 0, m2 & (dy != 0))
+
+
+def test_fused_autograd_function_launches_both_kernels(cuda):
+    """FusedLNMLP on the card: kernel 2 forward, kernel 3 backward, and
+    gradients within 1e-4 of the same function run on the CPU (plain)."""
+    ops = _mlp_operands(cuda, torch.float32, 200, 128, 256)
+    dy = torch.randn(200, 128, device=cuda)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.detach().to(dev).requires_grad_() for t in ops]
+        before = dict(_build.LAUNCHES)
+        FusedLNMLP.apply(*leaves, 1e-5, 0.1, 77).backward(dy.to(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["fused_ln_mlp"] == \
+                before.get("fused_ln_mlp", 0) + 1
+            assert _build.LAUNCHES["fused_ln_mlp_bwd"] == \
+                before.get("fused_ln_mlp_bwd", 0) + 1
+        grads.append([t.grad.cpu() for t in leaves])
+    for a, b in zip(*grads):
+        assert _rel(a, b) <= 1e-4
 
 
 def test_fused_ln_mlp_kernel_refuses_widths_it_does_not_take(cuda):
