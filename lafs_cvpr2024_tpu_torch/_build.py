@@ -1,8 +1,9 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into ONE shared library with a plain C interface, at the first CUDA use in
-a process, and loaded through ``ctypes``. Pointers and the CUDA stream go
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all of them at once, and the objects are linked into ONE
+shared library with a plain C interface, at the first CUDA use in a
+process, and loaded through ``ctypes``. Pointers and the CUDA stream go
 in as ``c_void_p``; every exported function returns the ``cudaError_t`` of
 its launch, which :func:`check` turns into an exception.
 
@@ -27,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 #: launches of each kernel, counted by its wrapper right after the launch
@@ -55,6 +56,13 @@ _SIGNATURES = {
     "lafs_fused_ln_mlp_bwd_f32": (_P,) * 14 + (_I, _I, _I, _F) + _DROP + (_P,),
     # T → rows of the (blocks, D) dγ/dβ partial buffers
     "lafs_fused_ln_mlp_bwd_blocks": (_I,),
+    # q, k, v, o, strides (12 int64), B, H, S, D, scale, stream
+    "lafs_fused_attention_bf16": (_P,) * 5 + (_I,) * 4 + (_F, _P),
+    "lafs_fused_attention_f32": (_P,) * 5 + (_I,) * 4 + (_F, _P),
+    # q, k, v, do, dq, dk, dv, stats, strides (21 int64), B, H, S, D, scale,
+    # stream
+    "lafs_fused_attention_bwd_bf16": (_P,) * 9 + (_I,) * 4 + (_F, _P),
+    "lafs_fused_attention_bwd_f32": (_P,) * 9 + (_I,) * 4 + (_F, _P),
     "lafs_cuda_error_string": (_I,),
 }
 
@@ -78,6 +86,44 @@ def _digest(sources) -> str:
     return h.hexdigest()[:16]
 
 
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def _wait(job) -> str:
+    """Wait for one ``nvcc`` from :func:`_start`; its stderr."""
+    cmd, proc = job
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{out}\n{err}")
+    return err
+
+
+def _compile(sources, out: Path) -> None:
+    """One ``nvcc -c`` per source, all started together, then one link."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    jobs = [_start([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+            for src, obj in zip(sources, objs)]
+    try:
+        logs = [_wait(job) for job in jobs]
+    finally:
+        for _, proc in jobs:  # a failed build leaves no compiler running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    tmp = out.with_name(f"{tag}.tmp")
+    _wait(_start([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]))
+    for obj in objs:
+        obj.unlink()
+    # ptxas -v: registers, shared memory and spills of every kernel
+    (BUILD_DIR / f"{out.stem}.ptxas.txt").write_text("".join(logs))
+    os.replace(tmp, out)  # atomic: a concurrent build loses nothing
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The built kernel library (built on the first call of a process)."""
@@ -85,18 +131,7 @@ def library() -> ctypes.CDLL:
     headers = sorted(CSRC.glob("*.cuh"))
     out = BUILD_DIR / f"liblafs_kernels-{_digest(sources + headers)}.so"
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        # ptxas -v: registers, shared memory and spills of every kernel
-        (BUILD_DIR / f"{out.stem}.ptxas.txt").write_text(proc.stderr)
-        os.replace(tmp, out)  # atomic: a concurrent build loses nothing
+        _compile(sources, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

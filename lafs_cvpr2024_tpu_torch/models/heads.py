@@ -1,22 +1,66 @@
-"""Projection heads (counterpart of ``lafs_cvpr2024_tpu/models/heads.py``):
-the DINO head of the SSL step.
+"""Heads (counterpart of ``lafs_cvpr2024_tpu/models/heads.py``): the DINO
+head of the SSL step and the CosFace margin head of supervised finetuning.
 
 Module names give the reference keys that the JAX exporter writes
 (``train/checkpoint.py:1131-1147``): ``mlp.{0,2,4}.{weight,bias}`` for the
-three Linear layers with exact GELUs between them, and
-``last_layer.weight_{g,v}`` for the weight-normed last layer.
+DINO head's three Linear layers with exact GELUs between them, and
+``last_layer.weight_{g,v}`` for its weight-normed last layer; the margin
+head's (C, D) class centres are ``weight`` (``loss.weight`` under
+Part-fViT). ArcFace, SFace and Softmax heads are not ported yet
+(ROADMAP.md, Open items 1.11).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
 def l2norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     """``x / max(‖x‖, eps)`` along ``dim`` (``heads.py::_l2norm``)."""
     return x / torch.linalg.vector_norm(x, dim=dim, keepdim=True).clamp_min(eps)
+
+
+def cosface_logits(embeddings: torch.Tensor, weight: torch.Tensor,
+                   labels: torch.Tensor, s: float = 64.0, m: float = 0.4,
+                   num_classes: int | None = None) -> torch.Tensor:
+    """CosFace ``s · (cos θ − m · y)`` (``heads.py:28-39``) with the (C, D)
+    ``weight`` rows as class centres, in the embeddings' dtype. ``labels``
+    are (B,) ints or (B, C) soft rows (mixup), which scale the margin by the
+    soft label value (``ViT_face.py:69-73``)."""
+    cosine = l2norm(embeddings) @ l2norm(weight).t()
+    if labels.ndim > 1:
+        one_hot = labels.to(cosine.dtype)
+    else:
+        one_hot = F.one_hot(labels.long(), num_classes or weight.shape[0]
+                            ).to(cosine.dtype)
+    return s * (cosine - m * one_hot)
+
+
+class CosFace(nn.Module):
+    """CosFace margin head over ``out_features`` classes (``heads.py:42-55``);
+    ``weight`` (out, in), xavier-uniform at init (:func:`init_xavier_`)."""
+
+    def __init__(self, in_features: int, out_features: int, s: float = 64.0,
+                 m: float = 0.4):
+        super().__init__()
+        self.s, self.m = float(s), float(m)
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+
+    def forward(self, embeddings, labels):
+        return cosface_logits(embeddings, self.weight, labels, self.s, self.m,
+                              self.weight.shape[0])
+
+
+def init_xavier_(weight: torch.Tensor, rng: np.random.Generator) -> None:
+    """Fill a (out, in) weight in place with U(−b, b), b = √(6 / (in + out))
+    (flax ``xavier_uniform``), drawn with numpy from ``rng``."""
+    bound = np.float32(np.sqrt(6.0 / (weight.shape[0] + weight.shape[1])))
+    u = rng.random(tuple(weight.shape), dtype=np.float32)
+    with torch.no_grad():
+        weight.copy_(torch.from_numpy((2.0 * u - 1.0) * bound))
 
 
 class WeightNormLinear(nn.Module):

@@ -21,9 +21,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.fused_attention import fused_attention
 from ..ops.fused_mlp import fused_ln_mlp
 
-ATTN_IMPLS = ("einsum",)
+ATTN_IMPLS = ("einsum", "fused")
 MLP_IMPLS = ("dense", "fused_ln")
 
 
@@ -110,15 +111,20 @@ class FeedForward(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention on the einsum path: the score and value
-    products stay ``torch.matmul``, as the JAX default leaves them to XLA."""
+    """Multi-head self-attention. ``attn_impl='einsum'``: the score and
+    value products stay ``torch.matmul``, as the JAX default leaves them to
+    XLA. ``'fused'``: sequences of 128 to 512 tokens go through
+    ``ops.fused_attention`` (kernels 6 and 7 on the card; fp32 softmax),
+    shorter and longer ones through the einsum path, as the JAX layer
+    chooses (``layers.py:218``)."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, attn_impl: str = "einsum"):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
         self.scale = dim ** -0.5  # reference quirk: model-dim scaling
+        self.attn_impl = attn_impl
         self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
         self.to_out = nn.Sequential(nn.Linear(inner, dim), FastDropout(dropout))
 
@@ -128,8 +134,13 @@ class Attention(nn.Module):
             t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
             for t in self.to_qkv(x).chunk(3, dim=-1)
         )
-        attn = (torch.matmul(q, k.transpose(-1, -2)) * self.scale).softmax(-1)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, n, -1)
+        if self.attn_impl == "fused" and 128 <= n <= 512:
+            out = fused_attention(q, k, v, self.scale)
+        else:
+            attn = (torch.matmul(q, k.transpose(-1, -2)) * self.scale
+                    ).softmax(-1)
+            out = torch.matmul(attn, v)
+        out = out.transpose(1, 2).reshape(b, n, -1)
         return self.to_out[1](self.to_out[0](out), rng)
 
 
@@ -169,7 +180,8 @@ class Transformer(nn.Module):
     """Depth-stacked pre-norm transformer. ``mlp_impl='fused_ln'`` runs each
     block's LayerNorm + MLP as kernel 2 (kernel 3 backward) when ``dim`` and
     ``mlp_dim`` are multiples of 128, as the JAX block does; otherwise, and
-    for ``'dense'``, plain PyTorch."""
+    for ``'dense'``, plain PyTorch. ``attn_impl='fused'`` runs attention
+    through kernels 6 and 7 (see :class:`Attention`)."""
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
                  mlp_dim: int, dropout: float = 0.0,
@@ -186,7 +198,8 @@ class Transformer(nn.Module):
                    and mlp_dim % 128 == 0)
         self.layers = nn.ModuleList(
             nn.ModuleList([
-                Residual(PreNorm(dim, Attention(dim, heads, dim_head, dropout)),
+                Residual(PreNorm(dim, Attention(dim, heads, dim_head, dropout,
+                                                attn_impl)),
                          drop_path_rate),
                 Residual(PreNorm(dim, FeedForward(dim, mlp_dim, dropout),
                                  fuse_ln), drop_path_rate),

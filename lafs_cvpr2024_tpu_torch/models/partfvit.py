@@ -1,13 +1,17 @@
 """Part-fViT, the landmark-conditioned face ViT (counterpart of
 ``lafs_cvpr2024_tpu/models/partfvit.py``).
 
-Ported: the ``with_land`` image path in eval mode (MobileNetV3 landmark
-regressor → min-max rescale → patch gather at the landmarks → transformer →
-LayerNorm of the CLS token), the pre-gathered token path in eval and
-training mode (the SSL path: embedding dropout, dropout and drop path drawn
-from a :class:`~.layers.DropoutRNG`), and the SSL ``LandmarkProvider``. The
-other variants (standcoord, raw patchify, global token, SimMIM, margin
-heads, ``random_coor``) raise and are queued in ROADMAP.md.
+Ported: the ``with_land`` image path (MobileNetV3 landmark regressor →
+Dropout(0.5) in training → min-max rescale → patch gather at the landmarks
+→ transformer → LayerNorm of the CLS token → the CosFace head when labels
+are given), in eval and in training, where the gradient flows through the
+gather into the regressor and its BatchNorm trains; the pre-gathered token
+path in eval and training mode (the SSL path); embedding dropout, dropout
+and drop path drawn from a :class:`~.layers.DropoutRNG`; and the SSL
+``LandmarkProvider``. The other variants (standcoord, raw patchify, global
+token, SimMIM, the ArcFace/SFace/Softmax heads, ``random_coor``, the
+``return_tokens``/``x_noaug``/``random_prob``/``glo_diff`` forward options)
+raise and are queued in ROADMAP.md.
 
 Module names follow the reference ``state_dict``: the landmark stem sits at
 the top level as ``stn.*`` and ``output_layer.*`` (the JAX package nests
@@ -24,6 +28,7 @@ import torch
 from torch import nn
 
 from ..ops.patch_gather import patch_gather
+from .heads import CosFace, init_xavier_
 from .layers import DropoutRNG, FastDropout, Transformer
 from .mobilenet import MobileNetV3Backbone
 
@@ -32,9 +37,10 @@ from .mobilenet import MobileNetV3Backbone
 class PartFViTConfig:
     """Same fields and names as the JAX config. The impl defaults differ:
     the port serves through its kernels (``gather_impl='kernel'``,
-    ``mlp_impl='fused_ln'``), which fall back to their plain PyTorch
-    versions only for CPU tensors; ``'gather'``/``'dense'`` is the plain
-    configuration."""
+    ``mlp_impl='fused_ln'``), which run their plain PyTorch versions only
+    for CPU tensors; ``'gather'``/``'dense'`` is the plain configuration.
+    ``attn_impl='fused'`` (kernels 6 and 7) is the supervised step's
+    default (``train/supervised.py``), ``'einsum'`` the served one."""
 
     image_size: int = 112
     patch_size: int = 8
@@ -58,7 +64,7 @@ class PartFViTConfig:
     cosface_m: float = 0.4
     cosface_s: float = 64.0
     gather_impl: str = "kernel"        # 'kernel' | 'gather'
-    attn_impl: str = "einsum"
+    attn_impl: str = "einsum"          # 'einsum' | 'fused'
     mlp_impl: str = "fused_ln"         # 'fused_ln' | 'dense'
     remat_policy: str = "none"
     bn_axis_name: Optional[str] = None
@@ -79,11 +85,16 @@ def minmax_rescale_landmarks(theta: torch.Tensor, num_landmarks: int,
 
 
 def regress_landmarks(stn: MobileNetV3Backbone, output_layer: nn.Linear,
-                      x: torch.Tensor, num_landmarks: int,
-                      coord_scale: float):
-    """NHWC image → ((B, N, 2) pixel landmarks, (B, C) pooled features)."""
+                      dropout: FastDropout, x: torch.Tensor,
+                      num_landmarks: int, coord_scale: float,
+                      rng: Optional[DropoutRNG] = None):
+    """NHWC image → ((B, N, 2) pixel landmarks, (B, C) pooled features):
+    mean-pooled stem features, Dropout(0.5) (training only; hard-coded in
+    the JAX module, ``partfvit.py:115``, as flax ``nn.Dropout``, whose keep
+    probability 0.5 :class:`~.layers.FastDropout` draws exactly), the
+    landmark head, min-max rescale."""
     pooled = stn(x).mean(dim=(1, 2))
-    theta = output_layer(pooled)  # Dropout(0.5) before it is the identity in eval
+    theta = output_layer(dropout(pooled, rng))
     return minmax_rescale_landmarks(theta, num_landmarks, coord_scale), pooled
 
 
@@ -96,11 +107,12 @@ class LandmarkRegressor(nn.Module):
         super().__init__()
         self.num_landmarks, self.coord_scale = num_landmarks, coord_scale
         self.stn = MobileNetV3Backbone(stn_mode)
+        self.dropout = FastDropout(0.5)
         self.output_layer = nn.Linear(self.stn.out_channels, num_landmarks * 2)
 
-    def forward(self, x):
-        return regress_landmarks(self.stn, self.output_layer, x,
-                                 self.num_landmarks, self.coord_scale)
+    def forward(self, x, rng: Optional[DropoutRNG] = None):
+        return regress_landmarks(self.stn, self.output_layer, self.dropout, x,
+                                 self.num_landmarks, self.coord_scale, rng)
 
 
 class LandmarkProvider(LandmarkRegressor):
@@ -140,8 +152,10 @@ class LandmarkProvider(LandmarkRegressor):
 
 class PartFViT(nn.Module):
     """Images (B, H, W, C) NHWC, or pre-gathered tokens (B, N, P·P·C) →
-    (B, dim) embeddings. Training mode takes tokens only, and a
-    :class:`~.layers.DropoutRNG` when any rate is above 0."""
+    (B, dim) embeddings, or ``(logits, landmarks)`` when ``labels`` are
+    given and the config has a margin head (``loss_type='CosFace'``).
+    Training mode takes a :class:`~.layers.DropoutRNG` when any rate is
+    above 0 (the landmark branch's Dropout(0.5) included)."""
 
     def __init__(self, cfg: PartFViTConfig):
         super().__init__()
@@ -152,11 +166,16 @@ class PartFViT(nn.Module):
                 f"PartFViT variants {unported} are not ported yet "
                 "(ROADMAP.md, Open items 1.13)"
             )
+        if cfg.loss_type not in ("None", "CosFace"):
+            raise NotImplementedError(
+                f"the {cfg.loss_type} head is not ported yet (ROADMAP.md, "
+                "Open items 1.11)")
         if cfg.pool not in ("cls", "mean"):
             raise ValueError(f"unknown pool {cfg.pool!r}")
         self.cfg = cfg
         if cfg.with_land:
-            self.stn = MobileNetV3Backbone(cfg.stn_mode)
+            self.stn = MobileNetV3Backbone(cfg.stn_mode, cfg.bn_axis_name)
+            self.landmark_dropout = FastDropout(0.5)
             self.output_layer = nn.Linear(self.stn.out_channels,
                                           cfg.num_patches * 2)
         patch_dim = cfg.patch_size ** 2 * cfg.channels
@@ -170,30 +189,39 @@ class PartFViT(nn.Module):
             cfg.dropout, cfg.drop_path_rate, cfg.attn_impl, cfg.mlp_impl,
         )
         self.mlp_head = nn.Sequential(nn.LayerNorm(cfg.dim, eps=1e-5))
+        if cfg.loss_type == "CosFace":
+            self.loss = CosFace(cfg.dim, cfg.num_classes, cfg.cosface_s,
+                                cfg.cosface_m)
 
-    def landmarks(self, x: torch.Tensor) -> torch.Tensor:
+    def landmarks(self, x: torch.Tensor,
+                  rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         """NHWC image → (B, N, 2) landmarks in pixels of [0, image_size-1]."""
-        theta, _ = regress_landmarks(self.stn, self.output_layer, x,
+        theta, _ = regress_landmarks(self.stn, self.output_layer,
+                                     self.landmark_dropout, x,
                                      self.cfg.num_patches,
-                                     float(self.cfg.image_size - 1))
+                                     float(self.cfg.image_size - 1), rng)
         return theta
 
-    def forward(self, x: torch.Tensor,
-                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None, *,
+                return_tokens: bool = False, x_noaug=None,
+                random_prob: bool = False, glo_diff: bool = False):
+        """``labels``: (B,) ints or (B, C) soft rows for the margin head."""
         cfg = self.cfg
+        if return_tokens or x_noaug is not None or random_prob or glo_diff:
+            raise NotImplementedError(
+                "PartFViT's return_tokens/x_noaug/random_prob/glo_diff "
+                "forward options are not ported yet (ROADMAP.md, Open "
+                "items 1.13)")
+        theta = None
         if x.ndim == 4:
-            if self.training:
-                raise NotImplementedError(
-                    "the image path is ported for eval only (call .eval()); "
-                    "training with landmarks comes with supervised "
-                    "finetuning (ROADMAP.md, Open items 1.11)"
-                )
             if not cfg.with_land:
                 raise NotImplementedError(
                     "raw-patchify image input (with_land=False) is not "
                     "ported yet (ROADMAP.md, Open items 1.2)"
                 )
-            tokens = patch_gather(x, self.landmarks(x), cfg.patch_size,
+            theta = self.landmarks(x, rng)
+            tokens = patch_gather(x, theta, cfg.patch_size,
                                   impl=cfg.gather_impl)
         else:
             tokens = x  # pre-gathered tokens (the SSL multi-crop path)
@@ -203,15 +231,18 @@ class PartFViT(nn.Module):
         h = h + self.pos_embedding[:, : n + 1]
         h = self.transformer(self.emb_dropout(h, rng), rng)
         pooled = h.mean(dim=1) if cfg.pool == "mean" else h[:, 0]
-        return self.mlp_head(pooled)
+        emb = self.mlp_head(pooled)
+        if labels is not None and cfg.loss_type != "None":
+            return self.loss(emb, labels), theta
+        return emb
 
 
 def init_random_(model: nn.Module, seed: int) -> nn.Module:
     """Fill ``model`` in place with random weights from ``seed`` on the
     flax initializers' scales: Linear/Conv weights N(0, 1/fan_in), biases
-    0, norm scales 1, ``cls_token``/``pos_embedding`` N(0, 1), BatchNorm
-    running stats (0, 1). Drawn with numpy, so the same seed gives the same
-    weights on every device."""
+    0, norm scales 1, ``cls_token``/``pos_embedding`` N(0, 1), the CosFace
+    ``loss.weight`` xavier-uniform, BatchNorm running stats (0, 1). Drawn
+    with numpy, so the same seed gives the same weights on every device."""
     rng = np.random.default_rng(seed)
 
     def normal(shape, std):
@@ -221,6 +252,9 @@ def init_random_(model: nn.Module, seed: int) -> nn.Module:
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
+            if name == "loss.weight":
+                init_xavier_(p, rng)
+                continue
             if name in ("cls_token", "pos_embedding"):
                 val = normal(p.shape, 1.0)
             elif leaf == "weight" and p.ndim >= 2:

@@ -6,9 +6,10 @@ dicts of numpy arrays, into the reference ``state_dict`` dialect the port's
 modules carry — the same keys, layouts and values as the JAX package's
 ``export_torch_state_dict`` (``train/checkpoint.py:1150-1247``), a DINO
 head under ``head`` included. It is numpy-only; :func:`to_tensors` makes
-``torch`` tensors of the result. :func:`ssl_state_from_flax` turns a whole
-JAX ``SSLTrainState`` into the port's, so both packages can start from one
-state.
+``torch`` tensors of the result. :func:`ssl_state_from_flax` and
+:func:`supervised_state_from_flax` turn a whole JAX ``SSLTrainState`` or
+supervised ``TrainState`` into the port's, so both packages can start from
+one state.
 """
 
 from __future__ import annotations
@@ -192,6 +193,9 @@ def state_dict_from_flax(params: Dict[str, Any],
             elif path[0] == "mlp_head" and path[1] in ("scale", "bias"):
                 out[f"mlp_head.0.{_BN_LEAF[path[1]]}"] = arr
                 ok = True
+            elif path == ("loss", "weight"):  # CosFace (C, D), as torch's
+                out["loss.weight"] = arr
+                ok = True
             elif path[0] == "head" and len(path) > 1:
                 ok = _dino_head(path[1:], arr, out)
             if not ok:
@@ -257,6 +261,33 @@ def ssl_state_from_flax(state, seed: int = 0, device=None):
                              mu=dev(_student_dict(opt.mu, "mu")),
                              nu=dev(_student_dict(opt.nu, "nu"))),
         center=torch.from_numpy(np.array(state.center, np.float32)).to(device),
+        step=int(np.asarray(state.step)), seed=int(seed))
+
+
+def supervised_state_from_flax(state, seed: int = 0, device=None):
+    """A JAX supervised ``TrainState`` with numpy leaves (in-model CosFace
+    head) → the port's ``train.supervised.TrainState``: params, the
+    landmark CNN's BatchNorm ``batch_stats``, both AdamW moments under the
+    params' keys and layouts, the count and the step. bfloat16 moments stay
+    bfloat16. The port's step derives its randomness from ``seed``, not
+    from the JAX key. Unmapped paths raise."""
+    from .optim import AdamWState
+    from .supervised import TrainState
+
+    def tree(t, stats=None):
+        leaves = list(_flatten(t).values())
+        bf16 = bool(leaves) and all(np.asarray(v).dtype.name == "bfloat16"
+                                    for v in leaves)
+        sd = to_tensors(state_dict_from_flax({} if stats else t, stats))
+        return {k: (v.bfloat16() if bf16 else v).to(device)
+                for k, v in sd.items()}
+
+    opt = state.opt_state
+    return TrainState(
+        params=tree(state.params),
+        batch_stats=tree({}, state.batch_stats) if state.batch_stats else {},
+        opt_state=AdamWState(count=int(np.asarray(opt.count)),
+                             mu=tree(opt.mu), nu=tree(opt.nu)),
         step=int(np.asarray(state.step)), seed=int(seed))
 
 

@@ -1,5 +1,6 @@
 """Loss functions (counterpart of ``lafs_cvpr2024_tpu/train/losses.py``):
-the DINO loss of the SSL step, on one device.
+the DINO loss of the SSL step and the soft-target cross-entropy of
+supervised finetuning, on one device.
 
 The center's cross-device all-reduce (``losses.py:75-80``) comes with the
 port's multi-GPU step; here the batch mean is the local one.
@@ -10,6 +11,14 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+
+def softmax_cross_entropy(logits: torch.Tensor,
+                          soft_targets: torch.Tensor) -> torch.Tensor:
+    """timm ``SoftTargetCrossEntropy`` (``losses.py:18-20``): the batch mean
+    of ``Σ −t · log_softmax(logits)``, in the logits' dtype."""
+    return torch.sum(-soft_targets * torch.log_softmax(logits, dim=-1),
+                     dim=-1).mean()
 
 
 def dino_loss(student_output: torch.Tensor, teacher_output: torch.Tensor,

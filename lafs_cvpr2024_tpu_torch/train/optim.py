@@ -1,7 +1,9 @@
-"""The SSL optimizer tail (counterpart of part of
+"""The optimizers of the two training steps (counterpart of part of
 ``lafs_cvpr2024_tpu/train/optim.py``): AdamW with torch semantics and
-low-precision moment storage, DINO's per-parameter gradient clip and
-weight-decay mask, the last-layer freeze gates and the EMA teacher.
+low-precision moment storage; for SSL, DINO's per-parameter gradient clip
+and weight-decay mask, the last-layer freeze gates and the EMA teacher;
+for supervised finetuning, BEiT's layer-wise lr decay and weight-decay
+groups (:func:`param_groups_lrd`).
 
 Parameters, gradients and moments are flat dicts ``name → tensor`` (the
 student's ``state_dict`` names). The update math runs in fp32 whatever the
@@ -86,10 +88,13 @@ def zero_grads_by_path(grads: Tree, predicate: Callable[[str], bool]) -> Tree:
 
 def adamw_update(grads: Tree, state: AdamWState, params: Tree, lr,
                  wd_scale: Optional[Dict[str, float]] = None, wd=0.0,
+                 lr_scale: Optional[Dict[str, float]] = None,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
                  ) -> Tuple[Tree, AdamWState]:
-    """torch.optim.AdamW: ``p -= lr · (m̂ / (√v̂ + eps) + wd_leaf · p)``
-    (``optim.py:75-124``), one parameter at a time."""
+    """torch.optim.AdamW: ``p -= lr·lr_leaf · (m̂ / (√v̂ + eps) + wd·wd_leaf
+    · p)`` (``optim.py:75-124``), one parameter at a time; ``wd_scale`` and
+    ``lr_scale`` hold the per-parameter factors (default 1), products taken
+    in float32 as the JAX step takes them."""
     count = state.count + 1
     c1, c2 = _bias_corrections(count, b1, b2)
     lr, wd = as_f32(lr), as_f32(wd)
@@ -98,12 +103,50 @@ def adamw_update(grads: Tree, state: AdamWState, params: Tree, lr,
         g = grads[n].to(f32)
         m = b1 * state.mu[n].to(f32) + (1 - b1) * g
         v = b2 * state.nu[n].to(f32) + (1 - b2) * torch.square(g)
-        ws = (wd_scale or {}).get(n, 1.0)
-        step = (m / c1) / (torch.sqrt(v / c2) + eps) + (wd * ws) * p.to(f32)
-        new_p[n] = (p.to(f32) - lr * step).to(p.dtype)
+        ws = as_f32(wd * as_f32((wd_scale or {}).get(n, 1.0)))
+        ls = as_f32(lr * as_f32((lr_scale or {}).get(n, 1.0)))
+        step = (m / c1) / (torch.sqrt(v / c2) + eps) + ws * p.to(f32)
+        new_p[n] = (p.to(f32) - ls * step).to(p.dtype)
         mu[n] = m.to(state.mu[n].dtype)
         nu[n] = v.to(state.nu[n].dtype)
     return new_p, AdamWState(count, mu, nu)
+
+
+def _vit_layer_id(name: str, num_layers: int) -> int:
+    """``get_layer_id_for_vit`` (``optim.py:405-414``) on ``state_dict``
+    names: 0 for the embeddings and the landmark branch, i + 1 for
+    transformer layer i, ``num_layers`` for the rest (``mlp_head``, the
+    margin head ``loss``)."""
+    if name.startswith(("cls_token", "pos_embedding", "patch_to_embedding",
+                        "stn.", "output_layer.")):
+        return 0
+    if name.startswith("transformer.layers."):
+        return int(name.split(".")[2]) + 1
+    return num_layers
+
+
+def param_groups_lrd(params: Tree, depth: int, weight_decay: float = 0.1,
+                     layer_decay: float = 0.58, stn_weight_decay: float = 5e-2
+                     ) -> Tuple[Dict[str, float], Dict[str, float]]:
+    """BEiT layer-wise lr decay (``optim.py:417-439``) on ``state_dict``
+    names: ``(lr_scale, wd_value)`` per parameter, the lr scale
+    ``layer_decay ** (depth + 1 − layer_id)``, the weight decay 0 for biases
+    and parameters of at most one dimension, ``stn_weight_decay`` for the
+    landmark stem ``stn.*`` and ``weight_decay`` for the rest (the landmark
+    head ``output_layer`` included). Use with ``adamw_update(..., wd=1.0,
+    wd_scale=wd_value, lr_scale=lr_scale)``."""
+    num_layers = depth + 1
+    lr_scale, wd_value = {}, {}
+    for n, p in params.items():
+        lr_scale[n] = float(layer_decay ** (num_layers
+                                            - _vit_layer_id(n, num_layers)))
+        if p.ndim <= 1 or n.endswith("bias"):
+            wd_value[n] = 0.0
+        elif n.startswith("stn."):
+            wd_value[n] = float(stn_weight_decay)
+        else:
+            wd_value[n] = float(weight_decay)
+    return lr_scale, wd_value
 
 
 def ema_update(teacher: Tree, student: Tree, momentum) -> Tree:

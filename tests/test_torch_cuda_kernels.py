@@ -12,7 +12,10 @@ Tolerances: the gather agrees to 1e-5 in fp32 and to one bf16 ulp in bf16
 and backward to 1e-4 relative in fp32 and 2e-2 in bf16 (both accumulate in
 fp32 in another order, and a 1-ulp flip of a bf16 intermediate moves the
 output). Dropout masks are the same bits: the kernels and the plain
-versions hash the same keys.
+versions hash the same keys. The fused attention forward and backward
+agree to 1e-5 relative in fp32 and 2e-2 in bf16 (fp32 logits and softmax in
+both; the products accumulate in another order, and bf16 A and dS may
+round one ulp apart).
 """
 
 import numpy as np
@@ -24,6 +27,13 @@ from lafs_cvpr2024_tpu_torch.models.partfvit import (
     PartFViT,
     PartFViTConfig,
     init_random_,
+)
+from lafs_cvpr2024_tpu_torch.ops.fused_attention import (
+    fused_attention,
+    fused_attention_bwd_cuda,
+    fused_attention_bwd_plain,
+    fused_attention_cuda,
+    fused_attention_plain,
 )
 from lafs_cvpr2024_tpu_torch.ops.fused_mlp import (
     FusedLNMLP,
@@ -53,7 +63,8 @@ def cuda():
 
 def _rel(got, want):
     got, want = got.double().cpu(), want.double().cpu()
-    return ((got - want).abs().max() / want.abs().max()).item()
+    return ((got - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -216,3 +227,83 @@ def test_model_kernel_configuration_matches_plain(cuda):
     assert _build.LAUNCHES["fused_ln_mlp"] == before.get("fused_ln_mlp", 0) + 2
     cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
     assert cos.min().item() >= 1 - 1e-5
+
+
+def _attn_operands(cuda, dtype, b, h, s, seed=3):
+    """q, k, v and dO as strided (B, H, S, 64) views of one (B, S, 3·H·64)
+    tensor, as the Attention module splits its to_qkv output, and a
+    contiguous dO."""
+    gen = torch.Generator(cuda).manual_seed(seed)
+    qkv = torch.randn(b, s, 3 * h * 64, device=cuda, generator=gen) * 2.0
+    q, k, v = (t.reshape(b, s, h, 64).transpose(1, 2)
+               for t in qkv.to(dtype).chunk(3, dim=-1))
+    do = torch.randn(b, h, s, 64, device=cuda, generator=gen).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,h,s", [(3, 2, 1), (3, 2, 37), (2, 3, 128),
+                                   (2, 3, 130), (4, 11, 197), (2, 2, 257),
+                                   (2, 2, 512)])
+def test_fused_attention_kernel_matches_plain(cuda, dtype, tol, b, h, s):
+    """Kernel 6 on strided views, ragged S: O within tolerance of the
+    plain version; the result is a view of a (B, S, H, D) tensor."""
+    q, k, v, _ = _attn_operands(cuda, dtype, b, h, s)
+    scale = 768 ** -0.5 * 4.0  # logits of a few units: a peaked softmax
+    before = _build.LAUNCHES["fused_attention"]
+    got = fused_attention_cuda(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_attention"] == before + 1
+    want = fused_attention_plain(q, k, v, scale)
+    assert got.dtype == dtype and got.shape == want.shape == (b, h, s, 64)
+    assert got.transpose(1, 2).is_contiguous()
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,h,s", [(3, 2, 1), (3, 2, 37), (2, 3, 128),
+                                   (2, 3, 130), (4, 11, 197), (2, 2, 257),
+                                   (2, 2, 512)])
+def test_fused_attention_bwd_kernel_matches_plain(cuda, dtype, tol, b, h, s):
+    """Kernel 7: dQ, dK and dV within tolerance of the plain version."""
+    q, k, v, do = _attn_operands(cuda, dtype, b, h, s)
+    scale = 768 ** -0.5 * 4.0
+    before = _build.LAUNCHES["fused_attention_bwd"]
+    got = fused_attention_bwd_cuda(q, k, v, do, scale)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_attention_bwd"] == before + 1
+    want = fused_attention_bwd_plain(q, k, v, do, scale)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == w.shape == (b, h, s, 64), name
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel(a, w) <= tol, name
+
+
+def test_fused_attention_autograd_launches_both_kernels(cuda):
+    """FusedAttention on the card: kernel 6 forward, kernel 7 backward, and
+    gradients within 1e-5 of the same function run on the CPU (plain)."""
+    q, k, v, do = _attn_operands(cuda, torch.float32, 2, 3, 150)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        before = dict(_build.LAUNCHES)
+        fused_attention(*leaves, 0.1).backward(do.to(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            for name in ("fused_attention", "fused_attention_bwd"):
+                assert _build.LAUNCHES[name] == before.get(name, 0) + 1
+        grads.append([t.grad.cpu() for t in leaves])
+    for a, b in zip(*grads):
+        assert _rel(a, b) <= 1e-5
+
+
+def test_fused_attention_kernel_refuses_shapes_it_does_not_take(cuda):
+    x = torch.zeros(1, 2, 513, 64, device=cuda)
+    with pytest.raises(ValueError, match="S <= 512"):
+        fused_attention(x, x, x, 0.1)
+    y = torch.zeros(1, 2, 16, 32, device=cuda)
+    with pytest.raises(ValueError, match="D = 64"):
+        fused_attention(y, y, y, 0.1)

@@ -138,9 +138,17 @@ def test_unported_variants_raise(field):
 
 
 def test_eval_only_and_unported_impls_raise():
+    """The image path is no longer eval only (it trains with the landmark
+    branch); what is still not ported raises: the return_tokens, x_noaug,
+    random_prob and glo_diff forward options, other margin heads, other
+    MLP impls."""
     model = PartFViT(PartFViTConfig(**ARCH))
-    with pytest.raises(NotImplementedError, match="eval only"):
-        model(torch.zeros(1, 48, 48, 3))
+    for opt in (dict(return_tokens=True), dict(random_prob=True),
+                dict(glo_diff=True), dict(x_noaug=torch.zeros(1, 48, 48, 3))):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            model(torch.zeros(1, 48, 48, 3), **opt)
+    with pytest.raises(NotImplementedError, match="ArcFace"):
+        PartFViT(PartFViTConfig(**{**ARCH, "loss_type": "ArcFace"}))
     with pytest.raises(NotImplementedError, match="mlp_impl"):
         PartFViT(PartFViTConfig(**ARCH, mlp_impl="fused"))
 
