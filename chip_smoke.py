@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``lafs_cvpr2024_tpu_torch/csrc`` and
-drives its three paths at the full width of Part-fViT-B (dim 768, depth 12,
+drives its four paths at the full width of Part-fViT-B (dim 768, depth 12,
 11 heads × 64, mlp 2048, 196 landmarks, MobileNetV3-large stem, 112×112
 input, bf16) with random weights from ``--seed``: the embedding server, the
-SSL training step and the supervised finetuning step. Phases, one line
-each:
+SSL training step, the supervised finetuning step and the SimMIM
+pretraining step. Phases, one line each:
 
 1. the device (and ``nvidia-smi``'s name and power limit);
 2. kernel 1 (patch gather) against its plain PyTorch version at
@@ -62,18 +62,47 @@ each:
     head leaf and ≥ 0.99 on the landmark CNN and its head (its BatchNorm
     scales and biases moved off their init first); the BatchNorm biases
     whose exact gradient is zero are held to ≤ 5e-2 of the landmark CNN's
-    largest gradient instead.
+    largest gradient instead;
+12. kernels 4 and 5 (the fused MLP without the LayerNorm, forward and
+    backward) against their plain versions at the SimMIM step's
+    T = 128·197 tokens, 768 → 2048, rates 0 and 0.1, u saved, bf16 and
+    fp32: y, u, do, hd and du within tolerance, both masks bit-identical;
+    kernel, plain and cuBLAS dense-block forward and backward ms;
+13. kernels 8 and 9 (LayerNorm + the bias-free ``to_qkv``, forward and
+    backward) against their plain versions at T = 128·197, D 768,
+    O = 2,112, and at a ragged T = 130 with O = 192, bf16 and fp32: y, xn,
+    dx, dγ and dβ within tolerance; kernel, plain and
+    ``F.linear(F.layer_norm(x), W)`` forward and autograd-backward ms;
+14. the SimMIM step (``train/simmim.py``) at the ``cli/train_simmim.py``
+    defaults: 128 uint8 112² images scaled on the card, landmark patches
+    from a random frozen landmark CNN, mask ratio 0.6, dropout/emb-dropout/
+    drop-path 0.1, bf16 compute and moments, clip 5.0, lr 1e-4, wd 0.05:
+    2 warm-up and ``SIM_TIMED`` timed steps per configuration (kernel:
+    gather kernel, ``fused`` MLP, ``lnqkv`` attention; plain: ``gather``,
+    ``dense``, ``einsum``; imgs/s = 128 / step time), peak memory, the
+    five kernels' launches per step (1 / 12 / 12 / 12 / 12), loss finite,
+    the weights and the mask token moved; then one step of both
+    configurations at every rate 0 from the same state, tokens and mask:
+    loss within 1e-3 relative, every gradient leaf at cosine ≥ 0.999; and
+    one step of the grid variant (``use_landmarks=False``).
 
 Any failure raises (non-zero exit); without CUDA it exits non-zero before
 printing any result. The last lines are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` adds a torch.profiler run of both configurations at the
-served shape, of two SSL steps and of one supervised step of each
-configuration: one table of device time by kernel per run in DIR, a line
-with the wall and busy device time, device time summed by kind of kernel,
-and one step timed part by part (SSL: tokens, teacher, student forward and
-backward, tail; supervised: microbatches forward and backward, update).
+served shape, of two SSL steps and of one supervised and one SimMIM step
+of each configuration: one table of device time by kernel per run in DIR,
+a line with the wall and busy device time, device time summed by kind of
+kernel, and one step timed part by part (SSL: tokens, teacher, student
+forward and backward, tail; supervised: microbatches forward and
+backward, update; SimMIM: tokens and mask, forward and backward, clip and
+AdamW).
+
+The kernels' record gives each kernel's ``bound_ms``: the larger of the
+FLOPs its call does over the card's peak rate for the dtype and the bytes
+it must move (each input read once, each output written once) over the
+memory rate, from the shapes this run measured (``bound``).
 """
 
 from __future__ import annotations
@@ -108,6 +137,12 @@ from lafs_cvpr2024_tpu_torch.ops.fused_attention import (
     fused_attention_cuda,
     fused_attention_plain,
 )
+from lafs_cvpr2024_tpu_torch.ops.fused_ln_linear import (
+    fused_ln_linear_bwd_cuda,
+    fused_ln_linear_bwd_plain,
+    fused_ln_linear_fwd_cuda,
+    fused_ln_linear_fwd_plain,
+)
 from lafs_cvpr2024_tpu_torch.ops.fused_mlp import (
     FusedLNMLP,
     dropout_mask,
@@ -115,10 +150,20 @@ from lafs_cvpr2024_tpu_torch.ops.fused_mlp import (
     fused_ln_mlp_bwd_plain,
     fused_ln_mlp_fwd_cuda,
     fused_ln_mlp_fwd_plain,
+    fused_mlp_bwd_cuda,
+    fused_mlp_bwd_plain,
+    fused_mlp_fwd_cuda,
+    fused_mlp_fwd_plain,
 )
 from lafs_cvpr2024_tpu_torch.ops.mixup import MixupConfig
 from lafs_cvpr2024_tpu_torch.ops.patch_gather import patch_gather_plain
 from lafs_cvpr2024_tpu_torch.ops.patch_gather_cuda import patch_gather_cuda
+from lafs_cvpr2024_tpu_torch.train.simmim import (
+    SimMIMConfig,
+    create_simmim_state,
+    make_simmim_train_step,
+)
+from lafs_cvpr2024_tpu_torch.train.simmim import step_seeds as sim_seeds
 from lafs_cvpr2024_tpu_torch.train.ssl import (
     SSLConfig,
     create_landmark_provider,
@@ -154,6 +199,18 @@ KERNELS = {
     "fused_attention_bwd": dict(
         source="lafs_cvpr2024_tpu_torch/csrc/fused_attention_bwd.cu",
         replaces="lafs_cvpr2024_tpu/ops/fused_attention.py:92"),
+    "fused_mlp": dict(
+        source="lafs_cvpr2024_tpu_torch/csrc/fused_mlp.cu",
+        replaces="lafs_cvpr2024_tpu/ops/fused_mlp.py:94"),
+    "fused_mlp_bwd": dict(
+        source="lafs_cvpr2024_tpu_torch/csrc/fused_mlp_bwd.cu",
+        replaces="lafs_cvpr2024_tpu/ops/fused_mlp.py:117"),
+    "fused_ln_linear": dict(
+        source="lafs_cvpr2024_tpu_torch/csrc/fused_ln_linear.cu",
+        replaces="lafs_cvpr2024_tpu/ops/fused_ln_linear.py:53"),
+    "fused_ln_linear_bwd": dict(
+        source="lafs_cvpr2024_tpu_torch/csrc/fused_ln_linear_bwd.cu",
+        replaces="lafs_cvpr2024_tpu/ops/fused_ln_linear.py:61"),
 }
 SERVE_KERNELS = ("patch_gather", "fused_ln_mlp")
 SSL_KERNELS = ("patch_gather", "fused_ln_mlp", "fused_ln_mlp_bwd")
@@ -174,6 +231,32 @@ ATTN_SHAPES = ((SUP_BATCH, 11, 197), (8, 11, 128), (8, 11, 130),
                (4, 11, 512))
 ATTN_TOLS = ((torch.bfloat16, 2e-2), (torch.float32, 1e-5))
 ATTN_SCALE = 768 ** -0.5               # the model-dim scale of Attention
+SIM_BATCH = 128                        # cli/train_simmim.py's batch a chip
+SIM_T = SIM_BATCH * 197                # MLP and QKV rows of one SimMIM step
+SIM_TIMED = 5                          # timed SimMIM steps per config
+SIM_CONFIGS = {"kernel": ("kernel", "fused", "lnqkv"),
+               "plain": ("gather", "dense", "einsum")}
+SIM_ARGS = dict(lr=1e-4, wd=0.05)      # cli/train_simmim.py's defaults
+QKV_O = 3 * 11 * 64                    # to_qkv width of Part-fViT-B: 2,112
+# the card's peaks for the bounds: H100 SXM data sheet (dense bf16 tensor
+# cores; fp32 outside the tensor cores, TF32 off), HBM3 rate
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+
+
+def bound(flops: float, moved: float, dtype=torch.bfloat16) -> dict:
+    """The least time the card could take for a call: the larger of its
+    operations over the peak rate for ``dtype`` and its compulsory bytes
+    over the memory rate, and which of the two it is."""
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    mem_ms = moved / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(ops_ms, mem_ms),
+                bound_by="operations" if ops_ms >= mem_ms else "bytes")
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors (each read or written once)."""
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -242,7 +325,9 @@ def phase_gather(dev, seed: int) -> dict:
               f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}"
               f" {'ok' if ok else 'FAIL'}", flush=True)
         require(ok, f"patch_gather kernel disagrees in {name}")
-        out[name] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms)
+        out[name] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                         library_ms=None,
+                         **bound(8 * got.numel(), nbytes(ti, tl, got), dtype))
     return out
 
 
@@ -352,8 +437,10 @@ def phase_mlp_train(dev, seed: int) -> dict:
                   f"dense_ms={dense_ms:.4f} {'ok' if ok else 'FAIL'}",
                   flush=True)
             require(ok, f"kernel 2 with dropout disagrees ({crops}, {name})")
-            out[(crops, name)] = dict(max_abs_err=err, ms=ms,
-                                      plain_ms=plain_ms, dense_ms=dense_ms)
+            out[(crops, name)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, dense_ms=dense_ms,
+                library_ms=None,
+                **bound(4 * t * 768 * 2048, nbytes(*ops, got, u), dtype))
     return out
 
 
@@ -413,7 +500,9 @@ def phase_mlp_bwd(dev, seed: int) -> dict:
                 require(ok, f"kernel 3 disagrees ({crops}, {name}, {rate})")
                 out[(crops, name, rate)] = dict(
                     max_abs_err=max(e for e, _ in errs.values()), ms=ms,
-                    plain_ms=plain_ms, dense_ms=dense_ms, fused_ms=fused_ms)
+                    plain_ms=plain_ms, dense_ms=dense_ms, fused_ms=fused_ms,
+                    library_ms=None,
+                    **bound(4 * t * 768 * 2048, nbytes(*bw, *got), dtype))
     return out
 
 
@@ -572,11 +661,17 @@ def phase_attn(dev, seed: int) -> dict:
                     plain_ms=cuda_ms(lambda: fused_attention_plain(
                         q, k, v, ATTN_SCALE), iters=5),
                     einsum_ms=cuda_ms(lambda: einsum_attention(
-                        q, k, v, ATTN_SCALE)))
+                        q, k, v, ATTN_SCALE)),
+                    # the one PyTorch call that computes the same function
+                    library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, scale=ATTN_SCALE)),
+                    **bound(4 * b * h * s * s * 64, nbytes(q, k, v, got),
+                            dtype))
                 out[name] = res
                 times = (f" kernel_ms={res['ms']:.4f} plain_ms="
                          f"{res['plain_ms']:.4f} einsum_ms="
-                         f"{res['einsum_ms']:.4f}")
+                         f"{res['einsum_ms']:.4f} sdpa_ms="
+                         f"{res['library_ms']:.4f}")
             print(f"phase 9 fused_attention ({b}, {h}, {s}, 64) {name}: "
                   f"max_abs_err={err:.3e} rel_err={rel:.3e} (tol {tol:g})"
                   f"{times} {'ok' if ok else 'FAIL'}", flush=True)
@@ -613,7 +708,11 @@ def phase_attn_bwd(dev, seed: int) -> dict:
                     plain_ms=cuda_ms(lambda: fused_attention_bwd_plain(
                         q, k, v, do, ATTN_SCALE), iters=5),
                     einsum_ms=cuda_ms(lambda: torch.autograd.grad(
-                        o, leaves, do, retain_graph=True)))
+                        o, leaves, do, retain_graph=True)),
+                    library_ms=None,
+                    # recomputed scores, dV, dA, dQ, dK: five products
+                    **bound(10 * b * h * s * s * 64, nbytes(q, k, v, do, *got),
+                            dtype))
                 del o
                 out[name] = res
                 times = (f" kernel_ms={res['ms']:.4f} plain_ms="
@@ -766,6 +865,323 @@ def phase_sup_agree(dev, sup: dict, seed: int) -> None:
     require(ok, "supervised kernel and plain configurations disagree")
 
 
+def phase_mlp_nol(dev, seed: int) -> dict:
+    """Kernels 4 and 5 (no LayerNorm) against their plain versions at the
+    SimMIM step's T, rates 0 and 0.1, bf16 and fp32; times at rate 0.1."""
+    rng = np.random.default_rng(seed + 20)
+    t, d, h = SIM_T, 768, 2048
+    arrs = mlp_arrays(rng, t)
+    dy_np = rng.standard_normal((t, d))
+    out = {}
+    for dtype, tol in TOLS:
+        x, g, bt, w1, b1, w2, b2 = on_card(arrs, dev, dtype)
+        dy = torch.from_numpy(dy_np.astype(np.float32)).to(dev, dtype)
+        name = dtype_name(dtype)
+        for rate in (0.0, 0.1):
+            kw = dict(rate=rate, seed=DROP_SEED)
+            fwd = (x, w1, b1, w2, b2)
+            y, u = fused_mlp_fwd_cuda(*fwd, save_u=True, **kw)
+            y_want, u_want = fused_mlp_fwd_plain(*fwd, save_u=True, **kw)
+            bwd = (u_want, dy, w2)
+            got = fused_mlp_bwd_cuda(*bwd, **kw)
+            want = fused_mlp_bwd_plain(*bwd, **kw)
+            torch.cuda.synchronize()
+            errs = {n: rel_err(a, b) for n, a, b in zip(
+                ("y", "u", "do", "hd", "du"), (y, u, *got),
+                (y_want, u_want, *want))}
+            masks = True
+            if rate:
+                m1 = dropout_mask(t, h, DROP_SEED, rate, 0, dtype, dev)
+                m2 = dropout_mask(t, d, DROP_SEED, rate, 1, dtype, dev)
+                y0, _ = fused_mlp_fwd_plain(*fwd)
+                h0 = F.gelu(u_want.float()).to(dtype)
+                masks = (mask_matches(y, m2, y0) and mask_matches(y_want, m2, y0)
+                         and all(mask_matches(o[0], m2, dy)
+                                 and mask_matches(o[1], m1, h0)
+                                 for o in (got, want)))
+            worst = max(r for _, r in errs.values())
+            ok = masks and worst <= tol and all(
+                bool(torch.isfinite(a).all()) for a in (y, u, *got))
+            times = ""
+            if rate:
+                ms = cuda_ms(lambda: fused_mlp_fwd_cuda(*fwd, save_u=True, **kw),
+                             iters=10)
+                plain_ms = cuda_ms(lambda: fused_mlp_fwd_plain(
+                    *fwd, save_u=True, **kw), iters=5)
+                bwd_ms = cuda_ms(lambda: fused_mlp_bwd_cuda(*bwd, **kw),
+                                 iters=10)
+                bwd_plain_ms = cuda_ms(lambda: fused_mlp_bwd_plain(*bwd, **kw),
+                                       iters=5)
+                # what mlp_impl='dense' runs on the LayerNorm's output
+                ff, _ = dense_mlp((x, g, bt, w1, b1, w2, b2), rate, seed)
+                leaves = [x.detach().requires_grad_(), *ff.parameters()]
+                drng = DropoutRNG(seed, dev)
+                with torch.no_grad():
+                    dense_ms = cuda_ms(lambda: ff(x, drng), iters=10)
+                yd = ff(leaves[0], drng)
+                dense_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+                    yd, leaves, dy, retain_graph=True), iters=10)
+                del yd
+                out[name] = dict(
+                    fwd=dict(max_abs_err=max(errs["y"][0], errs["u"][0]),
+                             ms=ms, plain_ms=plain_ms, dense_ms=dense_ms,
+                             library_ms=None,
+                             **bound(4 * t * d * h, nbytes(*fwd, y, u), dtype)),
+                    bwd=dict(max_abs_err=max(e for n, (e, _) in errs.items()
+                                             if n in ("do", "hd", "du")),
+                             ms=bwd_ms, plain_ms=bwd_plain_ms,
+                             dense_ms=dense_bwd_ms, library_ms=None,
+                             **bound(2 * t * d * h, nbytes(*bwd, *got),
+                                     dtype)))
+                times = (f" fwd kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                         f"dense_ms={dense_ms:.4f}; bwd kernel_ms={bwd_ms:.4f}"
+                         f" plain_ms={bwd_plain_ms:.4f} dense_autograd_ms="
+                         f"{dense_bwd_ms:.4f}")
+            print(f"phase 12 fused_mlp T={t} {name} rate={rate}: "
+                  f"mask_bit_identical={masks} rel_err "
+                  + " ".join(f"{n}={r:.2e}" for n, (_, r) in errs.items())
+                  + f" (tol {tol:g}){times} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            require(ok, f"kernel 4 or 5 disagrees ({name}, rate {rate})")
+            del y, u, y_want, u_want, got, want
+    return out
+
+
+def ln_linear_arrays(rng, t: int, d: int, o: int):
+    """Operands of one LN + linear call (x, g, bt, w, dy), w in the
+    nn.Linear layout, as float64 numpy."""
+    return (rng.standard_normal((t, d)) * 2.0 + 0.5,
+            1.0 + 0.1 * rng.standard_normal(d), 0.1 * rng.standard_normal(d),
+            rng.standard_normal((o, d)) / np.sqrt(d),
+            rng.standard_normal((t, o)))
+
+
+def phase_ln_linear(dev, seed: int) -> dict:
+    """Kernels 8 and 9 against their plain versions at the SimMIM step's
+    T and to_qkv width, and at a ragged shape; times at the step's shape
+    beside F.linear(F.layer_norm(x), W) and its autograd backward."""
+    rng = np.random.default_rng(seed + 21)
+    out = {}
+    for t, o in ((SIM_T, QKV_O), (130, 192)):
+        arrs = ln_linear_arrays(rng, t, 768, o)
+        for dtype, tol in TOLS:
+            x, g, bt, w, dy = on_card(arrs, dev, dtype)
+            y = fused_ln_linear_fwd_cuda(x, g, bt, w)
+            y_want = fused_ln_linear_fwd_plain(x, g, bt, w)
+            got = fused_ln_linear_bwd_cuda(x, dy, g, bt, w)
+            want = fused_ln_linear_bwd_plain(x, dy, g, bt, w)
+            torch.cuda.synchronize()
+            errs = {n: rel_err(a, b) for n, a, b in zip(
+                ("y", "xn", "dx", "dg", "dbt"), (y, *got), (y_want, *want))}
+            worst = max(r for _, r in errs.values())
+            ok = worst <= tol and y.shape == (t, o) and all(
+                bool(torch.isfinite(a).all()) for a in (y, *got))
+            name = dtype_name(dtype)
+            times = ""
+            if t == SIM_T:
+                ops = (x, g, bt, w)
+                ms = cuda_ms(lambda: fused_ln_linear_fwd_cuda(*ops), iters=10)
+                plain_ms = cuda_ms(lambda: fused_ln_linear_fwd_plain(*ops),
+                                   iters=5)
+                bwd_ms = cuda_ms(lambda: fused_ln_linear_bwd_cuda(
+                    x, dy, g, bt, w), iters=10)
+                bwd_plain_ms = cuda_ms(lambda: fused_ln_linear_bwd_plain(
+                    x, dy, g, bt, w), iters=5)
+                leaves = [a.detach().requires_grad_() for a in ops]
+
+                def dense(xx, gg, bb, ww):
+                    return F.linear(F.layer_norm(xx, (768,), gg, bb, 1e-5), ww)
+                with torch.no_grad():
+                    dense_ms = cuda_ms(lambda: dense(*ops), iters=10)
+                yd = dense(*leaves)
+                dense_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+                    yd, leaves, dy, retain_graph=True), iters=10)
+                del yd
+                out[name] = dict(
+                    fwd=dict(max_abs_err=errs["y"][0], ms=ms,
+                             plain_ms=plain_ms, dense_ms=dense_ms,
+                             library_ms=None,
+                             **bound(2 * t * 768 * o, nbytes(*ops, y), dtype)),
+                    bwd=dict(max_abs_err=max(e for n, (e, _) in errs.items()
+                                             if n != "y"),
+                             ms=bwd_ms, plain_ms=bwd_plain_ms,
+                             dense_ms=dense_bwd_ms, library_ms=None,
+                             **bound(2 * t * o * 768,
+                                     nbytes(x, dy, g, bt, w, *got), dtype)))
+                times = (f" fwd kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                         f"layer_norm+linear_ms={dense_ms:.4f}; bwd kernel_ms="
+                         f"{bwd_ms:.4f} plain_ms={bwd_plain_ms:.4f} "
+                         f"layer_norm+linear_autograd_ms={dense_bwd_ms:.4f}")
+            print(f"phase 13 fused_ln_linear T={t} D=768 O={o} {name}: rel_err "
+                  + " ".join(f"{n}={r:.2e}" for n, (_, r) in errs.items())
+                  + f" (tol {tol:g}){times} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            require(ok, f"kernel 8 or 9 disagrees (T={t}, O={o}, {name})")
+            del y, y_want, got, want
+    return out
+
+
+def sim_cfg(config: str, rate: float = 0.1,
+            use_landmarks: bool = True) -> SimMIMConfig:
+    """``cli/train_simmim.py``'s defaults on one GPU in either
+    configuration; ``rate`` for dropout, embedding dropout and drop
+    path."""
+    gather_impl, mlp_impl, attn_impl = SIM_CONFIGS[config]
+    model = PartFViTConfig(with_land=False, loss_type="None", num_classes=0,
+                           simmim=True, gather_impl=gather_impl,
+                           mlp_impl=mlp_impl, attn_impl=attn_impl,
+                           dropout=rate, emb_dropout=rate,
+                           drop_path_rate=rate)
+    return SimMIMConfig(model=model, input_scale="unit",
+                        compute_dtype=torch.bfloat16,
+                        moment_dtype=torch.bfloat16,
+                        use_landmarks=use_landmarks)
+
+
+def sim_batch(dev, seed: int) -> torch.Tensor:
+    """One SimMIM step's uint8 images, made on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 22)
+    return torch.randint(0, 256, (SIM_BATCH, 112, 112, 3), generator=gen,
+                         device=dev, dtype=torch.uint8)
+
+
+def phase_simmim(dev, seed: int) -> dict:
+    cfg = sim_cfg("kernel")
+    state0 = create_simmim_state(cfg, seed, dev)
+    land = create_landmark_provider(cfg, seed + 1, dev)
+    images = sim_batch(dev, seed)
+    n_params = sum(p.numel() for p in state0.params.values())
+    steps = 2 + SIM_TIMED
+    depth = cfg.model.depth
+    want = {"patch_gather": 1, "fused_mlp": depth, "fused_mlp_bwd": depth,
+            "fused_ln_linear": depth, "fused_ln_linear_bwd": depth}
+    keys = ("backbone.mask_token",
+            "backbone.transformer.layers.0.0.fn.fn.to_qkv.weight")
+    out = dict(state0=state0, land=land, images=images)
+    for config in SIM_CONFIGS:
+        step = make_simmim_train_step(sim_cfg(config))
+        torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        state = state0
+        for _ in range(2):  # warm-up
+            state, m = step(state, land, images, **SIM_ARGS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SIM_TIMED):
+            state, m = step(state, land, images, **SIM_ARGS)
+        loss = m["loss"].item()
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / SIM_TIMED
+        launches = dict(_build.LAUNCHES)
+        per_step = {k: v / steps for k, v in launches.items() if v}
+        if config == "kernel":
+            out["launches"] = launches
+            launches_ok = per_step == want
+        else:
+            launches_ok = not per_step  # the plain configuration: none
+        moved = all(not torch.equal(state.params[k], state0.params[k])
+                    for k in keys)
+        ok = (np.isfinite(loss) and moved and launches_ok
+              and state.step == steps)
+        out[config] = dict(step_ms=step_s * 1e3,
+                           imgs_per_s=SIM_BATCH / step_s, loss=loss)
+        print(f"phase 14 simmim {config}: {n_params / 1e6:.1f} M params, "
+              f"{SIM_BATCH} images a step, step_ms={step_s * 1e3:.2f} "
+              f"imgs_per_s={SIM_BATCH / step_s:.1f} loss_after_{steps}_steps="
+              f"{loss:.5f} mask_token_and_weights_moved={moved} peak_mem_gb="
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"launches_per_step={per_step} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        require(ok, f"SimMIM step checks failed ({config})")
+        del state, m
+    return out
+
+
+def phase_simmim_agree(dev, sim: dict) -> None:
+    """One step's loss and gradients, both configurations at every rate 0,
+    from the same state, tokens and mask; then one step of the grid
+    variant."""
+    state0, land, images = sim["state0"], sim["land"], sim["images"]
+    steps = {c: make_simmim_train_step(sim_cfg(c, 0.0)) for c in SIM_CONFIGS}
+    s_mask, s_drop = sim_seeds(state0.seed, state0.step)
+    tokens, mask = steps["kernel"].tokens_and_mask(land, images, s_mask)
+    res = {c: st.loss_and_grads(state0, tokens, mask, s_drop)
+           for c, st in steps.items()}
+    (lk, gk), (lp, gp) = res["kernel"], res["plain"]
+    rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    cos = grad_cosines(gk, gp)
+    worst = min(cos, key=cos.get)
+    ok = rel <= 1e-3 and cos[worst] >= 0.999 and np.isfinite(lk.item())
+    print(f"phase 14 simmim kernel-vs-plain at rate 0: loss {lk.item():.6f} "
+          f"vs {lp.item():.6f} (rel {rel:.2e}, tol 1e-3); gradient cosine "
+          f"min {cos[worst]:.6f} ({worst}) over {len(cos)} leaves (tol "
+          f"0.999) {'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, "SimMIM kernel and plain configurations disagree")
+    del res, gk, gp
+    grid = make_simmim_train_step(sim_cfg("kernel", use_landmarks=False))
+    _build.LAUNCHES.clear()
+    state, m = grid(state0, land, images, **SIM_ARGS)
+    loss = m["loss"].item()
+    launches = dict(_build.LAUNCHES)
+    ok = (np.isfinite(loss) and launches.get("patch_gather", 0) == 0
+          and launches.get("fused_ln_linear", 0) == grid.backbone.cfg.depth)
+    print(f"phase 14 simmim grid variant (use_landmarks=False): loss={loss:.5f}"
+          f" launches={launches} {'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, "SimMIM grid step checks failed")
+
+
+def phase_simmim_profile(dev, sim: dict, path: str) -> None:
+    """One profiled SimMIM step per configuration after a warm-up step:
+    device time by kernel (table in DIR) and by kind, busy and idle share
+    against the CUDA-event wall time of an unprofiled step, and one step
+    timed part by part (tokens and mask, forward and backward, update)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(path, exist_ok=True)
+    state0, land, images = sim["state0"], sim["land"], sim["images"]
+    for config in SIM_CONFIGS:
+        step = make_simmim_train_step(sim_cfg(config))
+        state, _ = step(state0, land, images, **SIM_ARGS)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        s_mask, s_drop = sim_seeds(state.seed, state.step)
+        ev[0].record()
+        tokens, mask = step.tokens_and_mask(land, images, s_mask)
+        ev[1].record()
+        _, grads = step.loss_and_grads(state, tokens, mask, s_drop)
+        ev[2].record()
+        step.update(state, grads, **SIM_ARGS)
+        ev[3].record()
+        torch.cuda.synchronize()
+        names = ("tokens_mask", "fwd_bwd", "update")
+        parts = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+        del grads
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, land, images, **SIM_ARGS)
+        end.record()
+        torch.cuda.synchronize()
+        wall = start.elapsed_time(end)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(state, land, images, **SIM_ARGS)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        with open(os.path.join(path, f"profile_simmim_{config}.txt"), "w") as f:
+            f.write(events.table(sort_by="self_device_time_total",
+                                 row_limit=120))
+        require(busy > 0, f"the profiler saw no device time for SimMIM {config}")
+        kinds = " ".join(f"{k}={v:.2f}" for k, v in by_kind(kernels, 1).items())
+        part_txt = " ".join(f"{k}={v:.2f}" for k, v in parts.items())
+        print(f"phase P profile simmim {config}: wall_ms={wall:.3f} "
+              f"busy_ms={busy:.3f} idle={1 - busy / wall:.3f}; parts_ms "
+              f"{part_txt}; device_ms_by_kind {kinds} -> {path}", flush=True)
+        del state
+
+
 def full_width(gather_impl: str, mlp_impl: str) -> PartFViT:
     return PartFViT(PartFViTConfig(loss_type="None", num_classes=0,
                                    gather_impl=gather_impl, mlp_impl=mlp_impl))
@@ -847,6 +1263,10 @@ KINDS = (
     ("kernel 6 fused attention forward", ("attn_fwd_",)),
     ("kernel 3 fused MLP backward", ("ln_mlp_bwd_",)),
     ("kernel 2 fused MLP forward", ("ln_mlp_bf16_kernel", "ln_mlp_f32_kernel")),
+    ("kernel 5 fused MLP (no LN) backward", ("mlp_bwd_",)),
+    ("kernel 4 fused MLP (no LN) forward", ("mlp_fwd_",)),
+    ("kernel 9 LN + linear backward", ("ln_linear_bwd_",)),
+    ("kernel 8 LN + linear forward", ("ln_linear_fwd_",)),
     ("kernel 1 patch gather", ("patch_gather",)),
     ("cuBLAS/CUTLASS GEMM", ("gemm", "nvjet", "xmma", "cutlass", "s1688",
                              "s16816", "wgmma", "splitKreduce")),
@@ -1064,8 +1484,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="also profile both configurations (serving, SSL and "
-                        "supervised) into DIR")
+                   help="also profile both configurations (serving, SSL, "
+                        "supervised and SimMIM) into DIR")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false — "
@@ -1105,26 +1525,53 @@ def main(argv=None) -> int:
     phase_sup_agree(dev, sup, args.seed)
     if args.profile:
         phase_sup_profile(dev, sup, args.profile)
+    sup_launches = sup["launches"]
+    del sup
+    mlp_nol = phase_mlp_nol(dev, args.seed)
+    ln_linear = phase_ln_linear(dev, args.seed)
+    sim = phase_simmim(dev, args.seed)
+    phase_simmim_agree(dev, sim)
+    if args.profile:
+        phase_simmim_profile(dev, sim, args.profile)
 
     # each kernel's numbers at its main-path shape in bf16: the gather at the
     # served batch, kernel 2 with dropout and u at the SSL global crops' T,
     # kernel 3 at rate 0.1 there, kernels 6 and 7 at one attention call of
-    # the supervised step; launches counted on the supervised steps
+    # the supervised step, kernels 4, 5, 8 and 9 at the SimMIM step's T
+    # (rate 0.1 for 4 and 5); launches counted on the last path that runs
+    # each kernel: the SimMIM steps, else the supervised ones
     measured = {"patch_gather": gather["bfloat16"],
                 "fused_ln_mlp": train_fwd[("global", "bfloat16")],
                 "fused_ln_mlp_bwd": train_bwd[("global", "bfloat16", 0.1)],
                 "fused_attention": attn["bfloat16"],
-                "fused_attention_bwd": attn_bwd["bfloat16"]}
+                "fused_attention_bwd": attn_bwd["bfloat16"],
+                "fused_mlp": mlp_nol["bfloat16"]["fwd"],
+                "fused_mlp_bwd": mlp_nol["bfloat16"]["bwd"],
+                "fused_ln_linear": ln_linear["bfloat16"]["fwd"],
+                "fused_ln_linear_bwd": ln_linear["bfloat16"]["bwd"]}
+    paths = {"serve": served, "ssl": ssl_launches,
+             "supervised": sup_launches, "simmim": sim["launches"]}
     record = {"kernels": [
         dict(name=name, route="cuda", **KERNELS[name],
-             launches=sup["launches"][name],
-             launches_by_path={"serve": served.get(name, 0),
-                               "ssl": ssl_launches.get(name, 0),
-                               "supervised": sup["launches"][name]},
+             launches=sim["launches"].get(name) or sup_launches.get(name, 0),
+             launches_by_path={p: n.get(name, 0) for p, n in paths.items()},
              max_abs_err=res["max_abs_err"], ms=res["ms"],
-             plain_ms=res["plain_ms"])
+             plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
+             bound_by=res["bound_by"], library_ms=res["library_ms"])
         for name, res in measured.items()
     ]}
+    missing = [r["name"] for r in record["kernels"] if not r["launches"]]
+    require(not missing, f"no path launched {missing}")
+    # the TPU kernels still to port, at the JAX package's shapes: row 10's
+    # bias-free fused MLP microbenchmark (benchmarks/bench_mlp_fusion.py)
+    # and row 11's flash attention at one attention call of the
+    # supervised step (the same function as kernel 6)
+    t10 = 22080
+    b10 = bound(4 * t10 * 768 * 2048, 2 * (2 * t10 * 768 + 2 * 768 * 2048))
+    print(f"bounds of the kernels still to port: row 10 (T={t10}, 768 -> "
+          f"2048, bf16) {b10['bound_ms']:.4f} ms ({b10['bound_by']}); row 11 "
+          f"(200, 11, 197, 64) {attn['bfloat16']['bound_ms']:.4f} ms "
+          f"({attn['bfloat16']['bound_by']})", flush=True)
     print(json.dumps(record))
     print(card())
     print(json.dumps({"ok": True, "device": {

@@ -40,7 +40,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
-# the dropout arguments of kernels 2 and 3: seed, keep threshold, 1/keep, on
+# the dropout arguments of kernels 2-5: seed, keep threshold, 1/keep, on
 _DROP = (_U, _U, _F, _I)
 # exported C functions → their argument types (all return cudaError_t but
 # the block count and the error string)
@@ -54,8 +54,20 @@ _SIGNATURES = {
     # T, D, H, eps, *_DROP, stream
     "lafs_fused_ln_mlp_bwd_bf16": (_P,) * 14 + (_I, _I, _I, _F) + _DROP + (_P,),
     "lafs_fused_ln_mlp_bwd_f32": (_P,) * 14 + (_I, _I, _I, _F) + _DROP + (_P,),
-    # T → rows of the (blocks, D) dγ/dβ partial buffers
-    "lafs_fused_ln_mlp_bwd_blocks": (_I,),
+    # T → rows of the (blocks, D) dγ/dβ partial buffers of kernels 3 and 9
+    "lafs_row_blocks": (_I,),
+    # x, w1t, b1, w2t, b2, y, u (or null), T, D, H, *_DROP, stream
+    "lafs_fused_mlp_bf16": (_P,) * 7 + (_I,) * 3 + _DROP + (_P,),
+    "lafs_fused_mlp_f32": (_P,) * 7 + (_I,) * 3 + _DROP + (_P,),
+    # u, dy, w2t, do, hd, du, T, D, H, *_DROP, stream
+    "lafs_fused_mlp_bwd_bf16": (_P,) * 6 + (_I,) * 3 + _DROP + (_P,),
+    "lafs_fused_mlp_bwd_f32": (_P,) * 6 + (_I,) * 3 + _DROP + (_P,),
+    # x, g, bt, w, y, T, D, O, eps, stream
+    "lafs_fused_ln_linear_bf16": (_P,) * 5 + (_I,) * 3 + (_F, _P),
+    "lafs_fused_ln_linear_f32": (_P,) * 5 + (_I,) * 3 + (_F, _P),
+    # x, dy, g, bt, w, xn, dx, dg_part, db_part, T, D, O, eps, stream
+    "lafs_fused_ln_linear_bwd_bf16": (_P,) * 9 + (_I,) * 3 + (_F, _P),
+    "lafs_fused_ln_linear_bwd_f32": (_P,) * 9 + (_I,) * 3 + (_F, _P),
     # q, k, v, o, strides (12 int64), B, H, S, D, scale, stream
     "lafs_fused_attention_bf16": (_P,) * 5 + (_I,) * 4 + (_F, _P),
     "lafs_fused_attention_f32": (_P,) * 5 + (_I,) * 4 + (_F, _P),

@@ -50,104 +50,6 @@ namespace {
 using namespace lafs_mlp;
 using namespace nvcuda;
 
-// LN statistics and xn of the block's rows, and the dropped-out output
-// gradient `do`, stored to device memory and into shared memory (row
-// stride ldd) as the A operand of do @ W2ᵀ; one warp per row.
-template <typename T>
-__device__ void bwd_prologue(const T* __restrict__ x, const T* __restrict__ dy,
-                             const T* __restrict__ g, const T* __restrict__ bt,
-                             T* __restrict__ xn, T* __restrict__ do_out, T* dos,
-                             int ldd, float* mean_s, float* rstd_s,
-                             long long row0, int T_rows, int D, float eps,
-                             const Dropout& drop) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < ROWS; r += WARPS) {
-    T* dst = dos + r * ldd;
-    const long long row = row0 + r;
-    if (row >= T_rows) {
-      for (int k = lane; k < D; k += 32) store(dst + k, 0.0f);
-      if (lane == 0) mean_s[r] = rstd_s[r] = 0.0f;
-      continue;
-    }
-    const T* src = x + row * D;
-    float mean, rstd;
-    row_stats(src, D, eps, lane, &mean, &rstd);
-    if (lane == 0) {
-      mean_s[r] = mean;
-      rstd_s[r] = rstd;
-    }
-    for (int k = lane; k < D; k += 32) {
-      const float xh = (to_f32(src[k]) - mean) * rstd;
-      store(xn + row * D + k, xh * to_f32(g[k]) + to_f32(bt[k]));
-      const float dv = drop.apply(to_f32(dy[row * D + k]), row, k, 1);
-      store(do_out + row * D + k, dv);
-      store(dst + k, dv);
-    }
-  }
-}
-
-// One hidden element of a valid row: hd and du stored, du returned
-// (before its rounding to T, which the caller's store applies).
-template <typename T>
-__device__ __forceinline__ float bwd_hidden(const T* __restrict__ u,
-                                            T* __restrict__ hd, T* __restrict__ du,
-                                            float dh, long long row, int H,
-                                            int col, const Dropout& drop) {
-  const float uv = to_f32(u[row * H + col]);
-  float hv = gelu(uv);
-  if (drop.on) {
-    const bool keep = drop.keep(row, col, 0);
-    hv = keep ? hv * drop.inv_keep : 0.0f;
-    dh = keep ? dh * drop.inv_keep : 0.0f;
-  }
-  const float dv = dh * gelu_grad(uv);
-  store(hd + row * H + col, hv);
-  store(du + row * H + col, dv);
-  return dv;
-}
-
-// dγ/dβ partial row of this block, then dx, from the block's dxn staged
-// in shared memory (row stride ldo).
-template <typename T>
-__device__ void bwd_epilogue(const float* os, int ldo, const float* mean_s,
-                             const float* rstd_s, const T* __restrict__ x,
-                             const T* __restrict__ g, T* __restrict__ dx,
-                             float* __restrict__ dgp, float* __restrict__ dbp,
-                             long long row0, int T_rows, int D) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int c = threadIdx.x; c < D; c += THREADS) {
-    float sg = 0.0f, sb = 0.0f;
-    for (int r = 0; r < ROWS; ++r) {
-      const long long row = row0 + r;
-      if (row >= T_rows) break;
-      const float v = os[r * ldo + c];
-      sg += v * ((to_f32(x[row * D + c]) - mean_s[r]) * rstd_s[r]);
-      sb += v;
-    }
-    dgp[(long long)blockIdx.x * D + c] = sg;
-    dbp[(long long)blockIdx.x * D + c] = sb;
-  }
-  for (int r = warp; r < ROWS; r += WARPS) {
-    const long long row = row0 + r;
-    if (row >= T_rows) continue;
-    const float mean = mean_s[r], rstd = rstd_s[r];
-    const T* src = x + row * D;
-    float s1 = 0.0f, s2 = 0.0f;
-    for (int k = lane; k < D; k += 32) {
-      const float xh = (to_f32(src[k]) - mean) * rstd;
-      const float dxh = os[r * ldo + k] * to_f32(g[k]);
-      s1 += dxh;
-      s2 += dxh * xh;
-    }
-    const float m1 = warp_sum(s1) / (float)D, m2 = warp_sum(s2) / (float)D;
-    for (int k = lane; k < D; k += 32) {
-      const float xh = (to_f32(src[k]) - mean) * rstd;
-      const float dxh = os[r * ldo + k] * to_f32(g[k]);
-      store(dx + row * D + k, rstd * (dxh - m1 - xh * m2));
-    }
-  }
-}
-
 // ---------------------------------------------------------------- bf16 --
 // NT = dxn column tiles (16 wide) per warp; D = NT * 16 * WARPS.
 template <int NT>
@@ -189,8 +91,8 @@ ln_mlp_bwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ u,
   const int warp = threadIdx.x / 32;
   const long long row0 = (long long)blockIdx.x * ROWS;
 
-  bwd_prologue(x, dy, g, bt, xn, do_, dos, L::LDX, mean_s, rstd_s, row0,
-               T_rows, D, eps, drop);
+  bwd_prologue<true>(x, g, bt, xn, mean_s, rstd_s, row0, T_rows, D, eps, dy,
+                     do_, dos, L::LDX, drop);
   __syncthreads();
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][NT];
@@ -268,13 +170,8 @@ cudaError_t launch_bwd_bf16(const void* x, const void* u, const void* dy,
                             const void* w2t, void* do_, void* hd, void* du,
                             void* xn, void* dx, void* dgp, void* dbp, int T_rows,
                             int H, float eps, Dropout drop, cudaStream_t s) {
-  using L = Bf16BwdLayout<NT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_mlp_bwd_bf16_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::SMEM);
-  if (err != cudaSuccess) return err;
-  const int blocks = (T_rows + ROWS - 1) / ROWS;
-  ln_mlp_bwd_bf16_kernel<NT><<<blocks, THREADS, L::SMEM, s>>>(
+  return launch_rows(
+      ln_mlp_bwd_bf16_kernel<NT>, Bf16BwdLayout<NT>::SMEM, T_rows, 1, s,
       static_cast<const bf16*>(x), static_cast<const bf16*>(u),
       static_cast<const bf16*>(dy), static_cast<const bf16*>(g),
       static_cast<const bf16*>(bt), static_cast<const bf16*>(w1t),
@@ -282,7 +179,6 @@ cudaError_t launch_bwd_bf16(const void* x, const void* u, const void* dy,
       static_cast<bf16*>(hd), static_cast<bf16*>(du), static_cast<bf16*>(xn),
       static_cast<bf16*>(dx), static_cast<float*>(dgp), static_cast<float*>(dbp),
       T_rows, H, eps, drop);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- fp32 --
@@ -310,8 +206,8 @@ ln_mlp_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ u,
   const int rg = tid / 32;             // row group of 4 rows (dhd phase)
   const long long row0 = (long long)blockIdx.x * ROWS;
 
-  bwd_prologue(x, dy, g, bt, xn, do_, dos, D, mean_s, rstd_s, row0, T_rows, D,
-               eps, drop);
+  bwd_prologue<true>(x, g, bt, xn, mean_s, rstd_s, row0, T_rows, D, eps, dy,
+                     do_, dos, D, drop);
 
   float acc[F_MAX_M][ROWS];
 #pragma unroll
@@ -370,8 +266,9 @@ ln_mlp_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ u,
 
 }  // namespace
 
-// Rows of the (blocks, D) dγ/dβ partial buffers for T rows.
-extern "C" int lafs_fused_ln_mlp_bwd_blocks(int T_rows) {
+// Rows of the (blocks, D) dγ/dβ partial buffers of kernels 3 and 9 for T
+// rows: both give each block ROWS rows.
+extern "C" int lafs_row_blocks(int T_rows) {
   return T_rows > 0 ? (T_rows + ROWS - 1) / ROWS : 0;
 }
 
@@ -410,12 +307,8 @@ extern "C" int lafs_fused_ln_mlp_bwd_f32(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (T_rows <= 0) return cudaSuccess;
   if (D % 128 || D > F_MAX_D || H % F_HC) return cudaErrorInvalidValue;
-  const int smem = bwd_f32_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_mlp_bwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (T_rows + ROWS - 1) / ROWS;
-  ln_mlp_bwd_f32_kernel<<<blocks, THREADS, smem, s>>>(
+  return launch_rows(
+      ln_mlp_bwd_f32_kernel, bwd_f32_smem_bytes(D), T_rows, 1, s,
       static_cast<const float*>(x), static_cast<const float*>(u),
       static_cast<const float*>(dy), static_cast<const float*>(g),
       static_cast<const float*>(bt), static_cast<const float*>(w1t),
@@ -423,5 +316,4 @@ extern "C" int lafs_fused_ln_mlp_bwd_f32(
       static_cast<float*>(hd), static_cast<float*>(du), static_cast<float*>(xn),
       static_cast<float*>(dx), static_cast<float*>(dgp), static_cast<float*>(dbp),
       T_rows, D, H, eps, make_dropout(seed, thresh, inv_keep, drop, 64));
-  return cudaGetLastError();
 }

@@ -22,10 +22,11 @@ import torch
 from torch import nn
 
 from ..ops.fused_attention import fused_attention
-from ..ops.fused_mlp import fused_ln_mlp
+from ..ops.fused_ln_linear import fused_ln_linear
+from ..ops.fused_mlp import fused_ln_mlp, fused_mlp
 
-ATTN_IMPLS = ("einsum", "fused")
-MLP_IMPLS = ("dense", "fused_ln")
+ATTN_IMPLS = ("einsum", "fused", "lnqkv")
+MLP_IMPLS = ("dense", "fused", "fused_ln")
 
 
 class DropoutRNG:
@@ -84,30 +85,39 @@ class FastDropout(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """Reference MLP: Linear, GELU (exact), Dropout, Linear, Dropout."""
+    """Reference MLP: Linear, GELU (exact), Dropout, Linear, Dropout.
+    ``mlp_impl`` 'fused' or 'fused_ln' with ``dim`` and ``hidden_dim``
+    multiples of 128 runs the block as ``ops.fused_mlp`` (kernels 4 and 5
+    on the card) when the caller applied the LayerNorm, as the JAX layer
+    chooses (``layers.py:161-175``); a LayerNorm passed as ``ln`` runs
+    inside ``fused_ln_mlp`` (kernels 2 and 3)."""
 
-    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0):
+    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0,
+                 mlp_impl: str = "dense"):
         super().__init__()
         self.net = nn.Sequential(
             nn.Linear(dim, hidden_dim), nn.GELU(), FastDropout(dropout),
             nn.Linear(hidden_dim, dim), FastDropout(dropout),
         )
+        self.fused = (mlp_impl in ("fused", "fused_ln") and dim % 128 == 0
+                      and hidden_dim % 128 == 0)
 
     def forward(self, x, rng: DropoutRNG | None = None,
                 ln: nn.LayerNorm | None = None):
         """``ln`` given: the pre-MLP LayerNorm runs inside the fused kernel
         (``mlp_impl='fused_ln'``); ``x`` is then un-normalised."""
         fc1, act, drop1, fc2, drop2 = self.net
-        if ln is None:
+        if ln is None and not self.fused:
             return drop2(fc2(drop1(act(fc1(x)), rng)), rng)
         rate = drop1.p if self.training else 0.0
         seed = _need_rng(rng, "fused MLP dropout").kernel_seed() if rate else 0
         dt = x.dtype  # the JAX layer casts every operand to x's dtype
-        return fused_ln_mlp(
-            x, ln.weight.to(dt), ln.bias.to(dt), fc1.weight.to(dt),
-            fc1.bias.to(dt), fc2.weight.to(dt), fc2.bias.to(dt),
-            eps=ln.eps, rate=rate, seed=seed,
-        )
+        w = (fc1.weight.to(dt), fc1.bias.to(dt), fc2.weight.to(dt),
+             fc2.bias.to(dt))
+        if ln is None:
+            return fused_mlp(x, *w, rate=rate, seed=seed)
+        return fused_ln_mlp(x, ln.weight.to(dt), ln.bias.to(dt), *w,
+                            eps=ln.eps, rate=rate, seed=seed)
 
 
 class Attention(nn.Module):
@@ -116,7 +126,10 @@ class Attention(nn.Module):
     XLA. ``'fused'``: sequences of 128 to 512 tokens go through
     ``ops.fused_attention`` (kernels 6 and 7 on the card; fp32 softmax),
     shorter and longer ones through the einsum path, as the JAX layer
-    chooses (``layers.py:218``)."""
+    chooses (``layers.py:218``). ``'lnqkv'``: the caller passes the
+    pre-attention LayerNorm as ``ln`` and ``x`` un-normalised, and
+    ``to_qkv`` runs as ``ops.fused_ln_linear`` (kernels 8 and 9); the
+    scores stay on the einsum path (``layers.py:197-208``)."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
                  dropout: float = 0.0, attn_impl: str = "einsum"):
@@ -128,11 +141,18 @@ class Attention(nn.Module):
         self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
         self.to_out = nn.Sequential(nn.Linear(inner, dim), FastDropout(dropout))
 
-    def forward(self, x, rng: DropoutRNG | None = None):
+    def forward(self, x, rng: DropoutRNG | None = None,
+                ln: nn.LayerNorm | None = None):
         b, n, _ = x.shape
+        if ln is None:
+            qkv = self.to_qkv(x)
+        else:
+            dt = x.dtype  # the JAX layer casts every operand to x's dtype
+            qkv = fused_ln_linear(x, ln.weight.to(dt), ln.bias.to(dt),
+                                  self.to_qkv.weight.to(dt), eps=ln.eps)
         q, k, v = (
             t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
-            for t in self.to_qkv(x).chunk(3, dim=-1)
+            for t in qkv.chunk(3, dim=-1)
         )
         if self.attn_impl == "fused" and 128 <= n <= 512:
             out = fused_attention(q, k, v, self.scale)
@@ -145,8 +165,9 @@ class Attention(nn.Module):
 
 
 class PreNorm(nn.Module):
-    """LayerNorm, then ``fn``. ``fuse_ln``: the norm's parameters go to the
-    fused MLP, which normalises inside kernel 2."""
+    """LayerNorm, then ``fn``. ``fuse_ln``: the norm's parameters go to
+    ``fn``, which normalises inside its kernel (kernel 2 of the fused MLP,
+    kernel 8 of the ``lnqkv`` projection)."""
 
     def __init__(self, dim: int, fn: nn.Module, fuse_ln: bool = False):
         super().__init__()
@@ -178,10 +199,13 @@ class Residual(nn.Module):
 
 class Transformer(nn.Module):
     """Depth-stacked pre-norm transformer. ``mlp_impl='fused_ln'`` runs each
-    block's LayerNorm + MLP as kernel 2 (kernel 3 backward) when ``dim`` and
+    block's LayerNorm + MLP as kernel 2 (kernel 3 backward) and ``'fused'``
+    its MLP alone as kernel 4 (kernel 5 backward) when ``dim`` and
     ``mlp_dim`` are multiples of 128, as the JAX block does; otherwise, and
     for ``'dense'``, plain PyTorch. ``attn_impl='fused'`` runs attention
-    through kernels 6 and 7 (see :class:`Attention`)."""
+    through kernels 6 and 7, ``'lnqkv'`` the LayerNorm and ``to_qkv``
+    through kernels 8 and 9 when ``dim`` is a multiple of 128 (see
+    :class:`Attention`)."""
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
                  mlp_dim: int, dropout: float = 0.0,
@@ -196,13 +220,15 @@ class Transformer(nn.Module):
             )
         fuse_ln = (mlp_impl == "fused_ln" and dim % 128 == 0
                    and mlp_dim % 128 == 0)
+        lnqkv = attn_impl == "lnqkv" and dim % 128 == 0
         self.layers = nn.ModuleList(
             nn.ModuleList([
                 Residual(PreNorm(dim, Attention(dim, heads, dim_head, dropout,
-                                                attn_impl)),
+                                                attn_impl), lnqkv),
                          drop_path_rate),
-                Residual(PreNorm(dim, FeedForward(dim, mlp_dim, dropout),
-                                 fuse_ln), drop_path_rate),
+                Residual(PreNorm(dim, FeedForward(dim, mlp_dim, dropout,
+                                                  mlp_impl), fuse_ln),
+                         drop_path_rate),
             ])
             for _ in range(depth)
         )

@@ -5,13 +5,15 @@ Ported: the ``with_land`` image path (MobileNetV3 landmark regressor →
 Dropout(0.5) in training → min-max rescale → patch gather at the landmarks
 → transformer → LayerNorm of the CLS token → the CosFace head when labels
 are given), in eval and in training, where the gradient flows through the
-gather into the regressor and its BatchNorm trains; the pre-gathered token
-path in eval and training mode (the SSL path); embedding dropout, dropout
-and drop path drawn from a :class:`~.layers.DropoutRNG`; and the SSL
-``LandmarkProvider``. The other variants (standcoord, raw patchify, global
-token, SimMIM, the ArcFace/SFace/Softmax heads, ``random_coor``, the
-``return_tokens``/``x_noaug``/``random_prob``/``glo_diff`` forward options)
-raise and are queued in ROADMAP.md.
+gather into the regressor and its BatchNorm trains; the fixed-grid image
+path (``with_land=False``: ``ops.patchify``); the pre-gathered token path
+in eval and training mode (the SSL and SimMIM paths); the SimMIM variant
+(``simmim=True``: a learned ``mask_token`` blended in where ``mask`` is 1)
+and ``return_tokens``; embedding dropout, dropout and drop path drawn from
+a :class:`~.layers.DropoutRNG`; and the SSL ``LandmarkProvider``. The
+other variants (standcoord, global token, the ArcFace/SFace/Softmax heads,
+``random_coor``, the ``x_noaug``/``random_prob``/``glo_diff`` forward
+options) raise and are queued in ROADMAP.md.
 
 Module names follow the reference ``state_dict``: the landmark stem sits at
 the top level as ``stn.*`` and ``output_layer.*`` (the JAX package nests
@@ -28,6 +30,7 @@ import torch
 from torch import nn
 
 from ..ops.patch_gather import patch_gather
+from ..ops.patchify import patchify
 from .heads import CosFace, init_xavier_
 from .layers import DropoutRNG, FastDropout, Transformer
 from .mobilenet import MobileNetV3Backbone
@@ -153,14 +156,15 @@ class LandmarkProvider(LandmarkRegressor):
 class PartFViT(nn.Module):
     """Images (B, H, W, C) NHWC, or pre-gathered tokens (B, N, P·P·C) →
     (B, dim) embeddings, or ``(logits, landmarks)`` when ``labels`` are
-    given and the config has a margin head (``loss_type='CosFace'``).
-    Training mode takes a :class:`~.layers.DropoutRNG` when any rate is
-    above 0 (the landmark branch's Dropout(0.5) included)."""
+    given and the config has a margin head (``loss_type='CosFace'``), or
+    ``(embeddings, tokens, landmarks)`` with ``return_tokens``. Training
+    mode takes a :class:`~.layers.DropoutRNG` when any rate is above 0 (the
+    landmark branch's Dropout(0.5) included)."""
 
     def __init__(self, cfg: PartFViTConfig):
         super().__init__()
-        unported = [name for name in ("use_standcoord", "use_global_token",
-                                      "simmim") if getattr(cfg, name)]
+        unported = [name for name in ("use_standcoord", "use_global_token")
+                    if getattr(cfg, name)]
         if unported:
             raise NotImplementedError(
                 f"PartFViT variants {unported} are not ported yet "
@@ -180,6 +184,8 @@ class PartFViT(nn.Module):
                                           cfg.num_patches * 2)
         patch_dim = cfg.patch_size ** 2 * cfg.channels
         self.patch_to_embedding = nn.Linear(patch_dim, cfg.dim)
+        if cfg.simmim:
+            self.mask_token = nn.Parameter(torch.zeros(1, 1, cfg.dim))
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.dim))
         self.pos_embedding = nn.Parameter(
             torch.zeros(1, cfg.num_patches + 1, cfg.dim))
@@ -204,34 +210,40 @@ class PartFViT(nn.Module):
 
     def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
                 rng: Optional[DropoutRNG] = None, *,
+                mask: Optional[torch.Tensor] = None,
                 return_tokens: bool = False, x_noaug=None,
                 random_prob: bool = False, glo_diff: bool = False):
-        """``labels``: (B,) ints or (B, C) soft rows for the margin head."""
+        """``labels``: (B,) ints or (B, C) soft rows for the margin head.
+        ``mask``: (B, N) 0/1 of the SimMIM path; where it is 1 the patch
+        embedding is replaced by ``mask_token`` (``partfvit.py:246-252``).
+        ``return_tokens``: ``(emb, output tokens without the CLS token,
+        landmarks or None)`` (``partfvit.py:287-288``)."""
         cfg = self.cfg
-        if return_tokens or x_noaug is not None or random_prob or glo_diff:
+        if x_noaug is not None or random_prob or glo_diff:
             raise NotImplementedError(
-                "PartFViT's return_tokens/x_noaug/random_prob/glo_diff "
-                "forward options are not ported yet (ROADMAP.md, Open "
-                "items 1.13)")
+                "PartFViT's x_noaug/random_prob/glo_diff forward options "
+                "are not ported yet (ROADMAP.md, Open items 1.13)")
         theta = None
-        if x.ndim == 4:
-            if not cfg.with_land:
-                raise NotImplementedError(
-                    "raw-patchify image input (with_land=False) is not "
-                    "ported yet (ROADMAP.md, Open items 1.2)"
-                )
+        if x.ndim == 4 and cfg.with_land:
             theta = self.landmarks(x, rng)
             tokens = patch_gather(x, theta, cfg.patch_size,
                                   impl=cfg.gather_impl)
+        elif x.ndim == 4:
+            tokens = patchify(x, cfg.patch_size)  # the fixed-grid variant
         else:
-            tokens = x  # pre-gathered tokens (the SSL multi-crop path)
+            tokens = x  # pre-gathered tokens (the SSL and SimMIM paths)
         tokens = self.patch_to_embedding(tokens)
+        if cfg.simmim and mask is not None:
+            m = mask[..., None].to(tokens.dtype)
+            tokens = tokens * (1 - m) + self.mask_token * m
         b, n, _ = tokens.shape
         h = torch.cat([self.cls_token.expand(b, -1, -1), tokens], dim=1)
         h = h + self.pos_embedding[:, : n + 1]
         h = self.transformer(self.emb_dropout(h, rng), rng)
         pooled = h.mean(dim=1) if cfg.pool == "mean" else h[:, 0]
         emb = self.mlp_head(pooled)
+        if return_tokens:
+            return emb, h[:, 1:], theta
         if labels is not None and cfg.loss_type != "None":
             return self.loss(emb, labels), theta
         return emb
@@ -240,7 +252,9 @@ class PartFViT(nn.Module):
 def init_random_(model: nn.Module, seed: int) -> nn.Module:
     """Fill ``model`` in place with random weights from ``seed`` on the
     flax initializers' scales: Linear/Conv weights N(0, 1/fan_in), biases
-    0, norm scales 1, ``cls_token``/``pos_embedding`` N(0, 1), the CosFace
+    0, norm scales 1, ``cls_token``/``pos_embedding`` N(0, 1), the SimMIM
+    ``mask_token`` from flax's ``truncated_normal(0.02)`` (std 0.02, cut at
+    two standard deviations of the underlying normal), the CosFace
     ``loss.weight`` xavier-uniform, BatchNorm running stats (0, 1). Drawn
     with numpy, so the same seed gives the same weights on every device."""
     rng = np.random.default_rng(seed)
@@ -255,7 +269,9 @@ def init_random_(model: nn.Module, seed: int) -> nn.Module:
             if name == "loss.weight":
                 init_xavier_(p, rng)
                 continue
-            if name in ("cls_token", "pos_embedding"):
+            if name == "mask_token":
+                val = torch.from_numpy(truncated_normal(rng, p.shape, 0.02))
+            elif name in ("cls_token", "pos_embedding"):
                 val = normal(p.shape, 1.0)
             elif leaf == "weight" and p.ndim >= 2:
                 fan_in = int(np.prod(p.shape[1:]))
@@ -269,3 +285,13 @@ def init_random_(model: nn.Module, seed: int) -> nn.Module:
             if isinstance(m, nn.BatchNorm2d):
                 m.reset_running_stats()
     return model
+
+
+def truncated_normal(rng: np.random.Generator, shape, std: float) -> np.ndarray:
+    """float32 draws of flax's ``truncated_normal(std)``: a standard normal
+    cut to [-2, 2] (redrawn outside), scaled so the result has standard
+    deviation ``std``."""
+    z = rng.standard_normal(shape)
+    while (out := np.abs(z) > 2.0).any():
+        z[out] = rng.standard_normal(int(out.sum()))
+    return (z * (std / 0.87962566103423978)).astype(np.float32)

@@ -6,10 +6,12 @@ dicts of numpy arrays, into the reference ``state_dict`` dialect the port's
 modules carry — the same keys, layouts and values as the JAX package's
 ``export_torch_state_dict`` (``train/checkpoint.py:1150-1247``), a DINO
 head under ``head`` included. It is numpy-only; :func:`to_tensors` makes
-``torch`` tensors of the result. :func:`ssl_state_from_flax` and
-:func:`supervised_state_from_flax` turn a whole JAX ``SSLTrainState`` or
-supervised ``TrainState`` into the port's, so both packages can start from
-one state.
+``torch`` tensors of the result. :func:`ssl_state_from_flax`,
+:func:`supervised_state_from_flax` and :func:`simmim_state_from_flax` turn
+a whole JAX ``SSLTrainState``, supervised ``TrainState`` or
+``SimMIMTrainState`` into the port's, so both packages can start from one
+state; :func:`simmim_encoder_state_dict` exports a SimMIM state's encoder
+for the port's server.
 """
 
 from __future__ import annotations
@@ -180,7 +182,8 @@ def state_dict_from_flax(params: Dict[str, Any],
                     ok = True
                 elif path[1] == "stn":
                     ok = _stn(path[2:], arr, out)
-            elif path in (("cls_token",), ("pos_embedding",)):
+            elif path in (("cls_token",), ("pos_embedding",),
+                          ("mask_token",)):
                 out[path[0]] = arr
                 ok = True
             elif path[0] == "patch_to_embedding" and path[1] in _DENSE_LEAF:
@@ -232,7 +235,7 @@ def _student_dict(tree, what: str):
             for k, v in out.items()}
 
 
-def ssl_state_from_flax(state, seed: int = 0, device=None):
+def ssl_state_from_flax(state, seed: int = 0, device="cuda"):
     """A JAX ``SSLTrainState`` with numpy leaves → the port's
     ``train.ssl.SSLTrainState``: student and teacher (backbone + DINO
     head), the AdamW moments under the student's keys and layouts (the
@@ -240,11 +243,14 @@ def ssl_state_from_flax(state, seed: int = 0, device=None):
     weights), the count, the center and the step. The port's step derives
     its randomness from ``seed``, not from the JAX key. Unmapped paths
     raise; the step's ``functional_call(strict=True)`` checks the keys
-    against its modules."""
+    against its modules. On the card unless ``device`` says otherwise."""
     import torch
 
+    from .device import resolve
     from .optim import AdamWState
     from .ssl import SSLTrainState
+
+    device = resolve(device)
 
     if state.stats not in ((), None, {}):
         raise ValueError("ssl_state_from_flax: BatchNorm stats (BN archs, "
@@ -264,15 +270,19 @@ def ssl_state_from_flax(state, seed: int = 0, device=None):
         step=int(np.asarray(state.step)), seed=int(seed))
 
 
-def supervised_state_from_flax(state, seed: int = 0, device=None):
+def supervised_state_from_flax(state, seed: int = 0, device="cuda"):
     """A JAX supervised ``TrainState`` with numpy leaves (in-model CosFace
     head) → the port's ``train.supervised.TrainState``: params, the
     landmark CNN's BatchNorm ``batch_stats``, both AdamW moments under the
     params' keys and layouts, the count and the step. bfloat16 moments stay
     bfloat16. The port's step derives its randomness from ``seed``, not
-    from the JAX key. Unmapped paths raise."""
+    from the JAX key. Unmapped paths raise. On the card unless ``device``
+    says otherwise."""
+    from .device import resolve
     from .optim import AdamWState
     from .supervised import TrainState
+
+    device = resolve(device)
 
     def tree(t, stats=None):
         leaves = list(_flatten(t).values())
@@ -289,6 +299,58 @@ def supervised_state_from_flax(state, seed: int = 0, device=None):
         opt_state=AdamWState(count=int(np.asarray(opt.count)),
                              mu=tree(opt.mu), nu=tree(opt.nu)),
         step=int(np.asarray(state.step)), seed=int(seed))
+
+
+def simmim_state_from_flax(state, seed: int = 0, device="cuda"):
+    """A JAX ``SimMIMTrainState`` with numpy leaves (``{"backbone": …,
+    "decoder": {"kernel", "bias"}}`` params, dense AdamW moments) → the
+    port's ``train.simmim.SimMIMTrainState``: ``backbone.*`` in the
+    reference dialect and ``decoder.weight`` (192, dim), the transpose of
+    the (dim, 192) kernel, with both moments under the same keys and
+    layouts, the count and the step. bfloat16 moments stay bfloat16. The
+    port's step derives its randomness from ``seed``, not from the JAX
+    key. Unmapped paths raise. On the card unless ``device`` says
+    otherwise."""
+    import torch
+
+    from .device import resolve
+    from .optim import AdamWState
+    from .simmim import SimMIMTrainState
+
+    device = resolve(device)
+
+    def tree(t):
+        if set(t) != {"backbone", "decoder"}:
+            raise ValueError(f"simmim_state_from_flax: keys {sorted(t)}, not "
+                             "{'backbone', 'decoder'}")
+        bf16 = {np.asarray(v).dtype.name == "bfloat16"
+                for v in _flatten(t).values()}
+        out = {f"backbone.{k}": v for k, v in
+               to_tensors(state_dict_from_flax(t["backbone"])).items()}
+        dec = t["decoder"]
+        out["decoder.weight"] = torch.from_numpy(_np32(dec["kernel"]).T.copy())
+        out["decoder.bias"] = torch.from_numpy(_np32(dec["bias"]).copy())
+        return {k: (v.bfloat16() if bf16 == {True} else v).to(device)
+                for k, v in out.items()}
+
+    opt = state.opt_state
+    params, mu, nu = tree(state.params), tree(opt.mu), tree(opt.nu)
+    if any(m[k].shape != p.shape for m in (mu, nu) for k, p in params.items()):
+        raise ValueError("simmim_state_from_flax: the moments are not laid "
+                         "out as the params (ZeRO-1 chunks are not ported)")
+    return SimMIMTrainState(
+        params=params,
+        opt_state=AdamWState(count=int(np.asarray(opt.count)), mu=mu, nu=nu),
+        step=int(np.asarray(state.step)), seed=int(seed))
+
+
+def simmim_encoder_state_dict(params) -> dict:
+    """The encoder of a SimMIM state's ``params`` as a reference-dialect
+    ``state_dict`` (``backbone.`` stripped, ``decoder.*`` dropped: the JAX
+    package exports the backbone alone, ``train/checkpoint.py:316-325``),
+    on the CPU, ready for ``torch.save`` and the port's ``.pth`` loader."""
+    return {k[len("backbone."):]: v.detach().cpu() for k, v in params.items()
+            if k.startswith("backbone.")}
 
 
 def to_tensors(state_dict: Dict[str, np.ndarray]):

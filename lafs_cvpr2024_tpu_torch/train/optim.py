@@ -3,7 +3,8 @@
 low-precision moment storage; for SSL, DINO's per-parameter gradient clip
 and weight-decay mask, the last-layer freeze gates and the EMA teacher;
 for supervised finetuning, BEiT's layer-wise lr decay and weight-decay
-groups (:func:`param_groups_lrd`).
+groups (:func:`param_groups_lrd`); for SimMIM, the global-norm clip
+(:func:`clip_grads_global`).
 
 Parameters, gradients and moments are flat dicts ``name → tensor`` (the
 student's ``state_dict`` names). The update math runs in fp32 whatever the
@@ -77,6 +78,17 @@ def clip_grads_per_param(grads: Tree, clip: float) -> Tree:
     return {n: g * torch.clamp(clip / (torch.linalg.vector_norm(g) + 1e-6),
                                max=1.0)
             for n, g in grads.items()}
+
+
+def clip_grads_global(grads: Tree, max_norm: float) -> Tree:
+    """``torch.nn.utils.clip_grad_norm_`` semantics (``optim.py:371-376``):
+    the global 2-norm of all gradients in fp32, every gradient scaled by
+    ``min(max_norm / (norm + 1e-6), 1)``."""
+    names = list(grads)
+    g32 = [grads[n].to(f32) for n in names]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g32)))
+    coef = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    return {n: grads[n] * coef.to(grads[n].dtype) for n in names}
 
 
 def zero_grads_by_path(grads: Tree, predicate: Callable[[str], bool]) -> Tree:
@@ -158,11 +170,11 @@ def ema_update(teacher: Tree, student: Tree, momentum) -> Tree:
 
 
 def fused_adamw_ema_update(
-    grads: Tree, state: AdamWState, params: Tree, teacher: Tree, lr, wd,
-    momentum, wd_scale: Optional[Dict[str, float]] = None,
+    grads: Tree, state: AdamWState, params: Tree, teacher: Optional[Tree],
+    lr, wd, momentum, wd_scale: Optional[Dict[str, float]] = None,
     gate: Optional[Dict[str, float]] = None, gate_scalar=1.0,
     clip: float = 0.0, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-) -> Tuple[Tree, AdamWState, Tree]:
+) -> Tuple[Tree, AdamWState, Optional[Tree]]:
     """The whole SSL update tail in one pass over the parameters
     (``optim.py:442-529``): per-parameter gates (gate 1: gradient scaled by
     ``gate_scalar``, the last-layer freeze; gate 2: gradient zeroed, the
@@ -174,7 +186,9 @@ def fused_adamw_ema_update(
     The JAX tail is one XLA fusion; here each stage is a ``torch._foreach``
     call over all parameters at once, so the tail launches a few kernels
     per stage rather than a few per parameter. Returns
-    ``(student, state, teacher)``, all new tensors."""
+    ``(student, state, teacher)``, all new tensors; with ``teacher`` None
+    (the SimMIM step: AdamW alone, no gates, no clip) the teacher returned
+    is None too."""
     names = list(params)
     count = state.count + 1
     c1, c2 = _bias_corrections(count, b1, b2)
@@ -208,11 +222,13 @@ def fused_adamw_ema_update(
                             torch._foreach_mul([p32[i] for i in idx], wd * ws))
     p_new = torch._foreach_sub(p32, torch._foreach_mul(step, lr))
     student = {n: p.to(params[n].dtype) for n, p in zip(names, p_new)}
+    moments = AdamWState(
+        count, {n: x.to(state.mu[n].dtype) for n, x in zip(names, m)},
+        {n: x.to(state.nu[n].dtype) for n, x in zip(names, v)})
+    if teacher is None:
+        return student, moments, None
     t = torch._foreach_mul([teacher[n].to(f32) for n in names], momentum)
     torch._foreach_add_(t, torch._foreach_mul(
         [student[n].to(f32) for n in names], 1.0 - momentum))
-    return (student,
-            AdamWState(count,
-                       {n: x.to(state.mu[n].dtype) for n, x in zip(names, m)},
-                       {n: x.to(state.nu[n].dtype) for n, x in zip(names, v)}),
+    return (student, moments,
             {n: x.to(teacher[n].dtype) for n, x in zip(names, t)})

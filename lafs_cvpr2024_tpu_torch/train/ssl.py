@@ -50,6 +50,7 @@ from ..models.partfvit import (
     PartFViTConfig,
     init_random_,
 )
+from .device import CUDA, resolve
 from .losses import dino_loss
 from .optim import (
     AdamWState,
@@ -162,12 +163,14 @@ def _provider(cfg: SSLConfig) -> LandmarkProvider:
         gather_impl=cfg.model.gather_impl)
 
 
-def create_ssl_state(cfg: SSLConfig, seed: int, device=None) -> SSLTrainState:
+def create_ssl_state(cfg: SSLConfig, seed: int,
+                     device=CUDA) -> SSLTrainState:
     """Random student from ``seed`` (backbone on ``init_random_``'s scales,
     head on the JAX head's); the teacher is a copy of it
     (``lafs_train.py:377``); zero moments in ``moment_dtype``; zero
-    center."""
+    center. On the card unless ``device`` says otherwise."""
     check_supported(cfg)
+    device = resolve(device)
     bb = init_random_(_backbone(cfg), seed)
     hd = init_dino_head_(_head(cfg), seed + 1)
     student = {f"backbone.{k}": v for k, v in bb.state_dict().items()}
@@ -182,10 +185,13 @@ def create_ssl_state(cfg: SSLConfig, seed: int, device=None) -> SSLTrainState:
         step=0, seed=int(seed))
 
 
-def create_landmark_provider(cfg: SSLConfig, seed: int, device=None) -> Tree:
+def create_landmark_provider(cfg, seed: int, device=CUDA) -> Tree:
     """The frozen landmark CNN's state (``stn.*``, ``output_layer.*``,
-    BatchNorm buffers), random from ``seed``; load real weights with
-    ``train.checkpoint.state_dict_from_flax`` instead."""
+    BatchNorm buffers), random from ``seed``, for any config with a
+    ``model`` field (the SSL and SimMIM steps'); load real weights with
+    ``train.checkpoint.state_dict_from_flax`` instead. On the card unless
+    ``device`` says otherwise."""
+    device = resolve(device)
     provider = init_random_(_provider(cfg), seed)
     return {k: v.to(device) for k, v in provider.state_dict().items()}
 

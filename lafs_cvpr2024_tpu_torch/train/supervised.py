@@ -48,6 +48,7 @@ from ..models.layers import DropoutRNG
 from ..models.partfvit import PartFViT, PartFViTConfig, init_random_
 from ..ops.augment_device import scale_uint8
 from ..ops.mixup import MixupConfig, mixup_cutmix
+from .device import CUDA, resolve
 from .losses import softmax_cross_entropy
 from .optim import AdamWState, Tree, adamw_init, adamw_update, param_groups_lrd
 
@@ -121,12 +122,15 @@ class TrainState:
     seed: int
 
 
-def create_state(cfg: SupervisedConfig, seed: int, device=None) -> TrainState:
+def create_state(cfg: SupervisedConfig, seed: int,
+                 device=CUDA) -> TrainState:
     """Random Part-fViT with its CosFace head from ``seed``
     (:func:`~..models.partfvit.init_random_`), zero moments in
     ``moment_dtype``; load real weights with
-    ``train.checkpoint.supervised_state_from_flax`` instead."""
+    ``train.checkpoint.supervised_state_from_flax`` instead. On the card
+    unless ``device`` says otherwise."""
     check_supported(cfg)
+    device = resolve(device)
     model = init_random_(PartFViT(cfg.model), seed).to(device)
     params = {n: p.detach() for n, p in model.named_parameters()}
     return TrainState(

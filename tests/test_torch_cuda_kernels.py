@@ -11,7 +11,9 @@ Tolerances: the gather agrees to 1e-5 in fp32 and to one bf16 ulp in bf16
 (the same four-corner sum, contracted to FMAs by nvcc); the MLP forward
 and backward to 1e-4 relative in fp32 and 2e-2 in bf16 (both accumulate in
 fp32 in another order, and a 1-ulp flip of a bf16 intermediate moves the
-output). Dropout masks are the same bits: the kernels and the plain
+output), with and without the LayerNorm (kernels 2-5), and so do the
+LN-fused linear's forward and backward (kernels 8 and 9) at any output
+width O. Dropout masks are the same bits: the kernels and the plain
 versions hash the same keys. The fused attention forward and backward
 agree to 1e-5 relative in fp32 and 2e-2 in bf16 (fp32 logits and softmax in
 both; the products accumulate in another order, and bf16 A and dS may
@@ -35,14 +37,28 @@ from lafs_cvpr2024_tpu_torch.ops.fused_attention import (
     fused_attention_cuda,
     fused_attention_plain,
 )
+from lafs_cvpr2024_tpu_torch.ops.fused_ln_linear import (
+    FusedLNLinear,
+    fused_ln_linear,
+    fused_ln_linear_bwd_cuda,
+    fused_ln_linear_bwd_plain,
+    fused_ln_linear_fwd_cuda,
+    fused_ln_linear_fwd_plain,
+)
 from lafs_cvpr2024_tpu_torch.ops.fused_mlp import (
     FusedLNMLP,
+    FusedMLP,
     dropout_mask,
     fused_ln_mlp,
     fused_ln_mlp_bwd_cuda,
     fused_ln_mlp_bwd_plain,
     fused_ln_mlp_fwd_cuda,
     fused_ln_mlp_fwd_plain,
+    fused_mlp,
+    fused_mlp_bwd_cuda,
+    fused_mlp_bwd_plain,
+    fused_mlp_fwd_cuda,
+    fused_mlp_fwd_plain,
 )
 from lafs_cvpr2024_tpu_torch.ops.patch_gather import (
     patch_gather,
@@ -307,3 +323,202 @@ def test_fused_attention_kernel_refuses_shapes_it_does_not_take(cuda):
     y = torch.zeros(1, 2, 16, 32, device=cuda)
     with pytest.raises(ValueError, match="D = 64"):
         fused_attention(y, y, y, 0.1)
+
+
+# ------------------------------------------------ kernels 4 and 5 (fused) --
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d,h", [(128, 256), (768, 2048)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_mlp_kernel_matches_plain(cuda, dtype, tol, d, h, rate):
+    """Kernel 4 (no LayerNorm) with u saved: y and u within tolerance of
+    the plain version, the output mask (the zeros of y) the plain
+    version's bit for bit; without u the same y."""
+    x, _, _, w1, b1, w2, b2 = _mlp_operands(cuda, dtype, 333, d, h)
+    kw = dict(rate=rate, seed=24680)
+    before = _build.LAUNCHES["fused_mlp"]
+    got, u = fused_mlp_fwd_cuda(x, w1, b1, w2, b2, save_u=True, **kw)
+    no_u, _ = fused_mlp_fwd_cuda(x, w1, b1, w2, b2, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_mlp"] == before + 2
+    want, u_want = fused_mlp_fwd_plain(x, w1, b1, w2, b2, save_u=True, **kw)
+    assert got.dtype == u.dtype == dtype and u.shape == (333, h)
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= tol and _rel(u, u_want) <= tol
+    assert torch.equal(got, no_u)
+    if rate:
+        m2 = dropout_mask(333, d, 24680, rate, 1, dtype, cuda)
+        assert torch.equal(got != 0, m2) and torch.equal(want != 0, m2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d,h", [(128, 256), (768, 2048)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_mlp_bwd_kernel_matches_plain(cuda, dtype, tol, d, h, rate):
+    """Kernel 5: do, hd and du against the plain version on the same saved
+    u; both masks (the zeros of do and hd) bit for bit."""
+    x, _, _, w1, b1, w2, b2 = _mlp_operands(cuda, dtype, 333, d, h)
+    _, u = fused_mlp_fwd_plain(x, w1, b1, w2, b2, save_u=True)
+    dy = torch.randn(333, d, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(4)).to(dtype)
+    before = _build.LAUNCHES["fused_mlp_bwd"]
+    got = fused_mlp_bwd_cuda(u, dy, w2, rate=rate, seed=66)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_mlp_bwd"] == before + 1
+    want = fused_mlp_bwd_plain(u, dy, w2, rate=rate, seed=66)
+    for name, a, b in zip(("do", "hd", "du"), got, want):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) <= tol, name
+    if rate:
+        m1 = dropout_mask(333, h, 66, rate, 0, dtype, cuda)
+        m2 = dropout_mask(333, d, 66, rate, 1, dtype, cuda)
+        h0 = torch.nn.functional.gelu(u.float()).to(dtype)
+        assert torch.equal(got[1] != 0, m1 & (h0 != 0))
+        assert torch.equal(got[0] != 0, m2 & (dy != 0))
+
+
+def test_fused_mlp_autograd_launches_both_kernels(cuda):
+    """FusedMLP on the card: kernel 4 forward, kernel 5 backward, and
+    gradients within 1e-4 of the same function run on the CPU (plain)."""
+    x, _, _, w1, b1, w2, b2 = _mlp_operands(cuda, torch.float32, 200, 128,
+                                            256)
+    dy = torch.randn(200, 128, device=cuda)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.detach().to(dev).requires_grad_()
+                  for t in (x, w1, b1, w2, b2)]
+        before = dict(_build.LAUNCHES)
+        FusedMLP.apply(*leaves, 0.1, 77).backward(dy.to(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            for name in ("fused_mlp", "fused_mlp_bwd"):
+                assert _build.LAUNCHES[name] == before.get(name, 0) + 1
+        grads.append([t.grad.cpu() for t in leaves])
+    for a, b in zip(*grads):
+        assert _rel(a, b) <= 1e-4
+
+
+def test_fused_mlp_kernel_refuses_widths_it_does_not_take(cuda):
+    x = torch.zeros(8, 96, device=cuda)
+    with pytest.raises(ValueError, match="D % 128"):
+        fused_mlp(x, torch.zeros(256, 96, device=cuda),
+                  torch.zeros(256, device=cuda),
+                  torch.zeros(96, 256, device=cuda),
+                  torch.zeros(96, device=cuda))
+
+
+# ------------------------------------------ kernels 8 and 9 (LN + linear) --
+
+def _ln_linear_operands(cuda, dtype, t, d, o, seed=5):
+    rng = np.random.default_rng(seed)
+    arrs = (rng.standard_normal((t, d)) * 2.0 + 0.5,
+            1.0 + 0.1 * rng.standard_normal(d), 0.1 * rng.standard_normal(d),
+            rng.standard_normal((o, d)) / np.sqrt(d),  # nn.Linear layout
+            rng.standard_normal((t, o)))
+    return [torch.from_numpy(a.astype(np.float32)).to(cuda, dtype)
+            for a in arrs]
+
+
+LN_LINEAR_SHAPES = [(333, 128, 192), (130, 128, 100), (333, 768, 2112),
+                    (130, 768, 192)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("t,d,o", LN_LINEAR_SHAPES)
+def test_fused_ln_linear_kernel_matches_plain(cuda, dtype, tol, t, d, o):
+    """Kernel 8 at ragged T and at output widths that are not a multiple
+    of its 128-column block (2,112, 192) or of 16 (100)."""
+    x, g, bt, w, _ = _ln_linear_operands(cuda, dtype, t, d, o)
+    before = _build.LAUNCHES["fused_ln_linear"]
+    got = fused_ln_linear_fwd_cuda(x, g, bt, w)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_ln_linear"] == before + 1
+    want = fused_ln_linear_fwd_plain(x, g, bt, w)
+    assert got.dtype == dtype and got.shape == want.shape == (t, o)
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("t,d,o", LN_LINEAR_SHAPES)
+def test_fused_ln_linear_bwd_kernel_matches_plain(cuda, dtype, tol, t, d, o):
+    """Kernel 9: xn, dx, dγ and dβ against the plain version."""
+    x, g, bt, w, dy = _ln_linear_operands(cuda, dtype, t, d, o)
+    before = _build.LAUNCHES["fused_ln_linear_bwd"]
+    got = fused_ln_linear_bwd_cuda(x, dy, g, bt, w)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_ln_linear_bwd"] == before + 1
+    want = fused_ln_linear_bwd_plain(x, dy, g, bt, w)
+    for name, a, b in zip(("xn", "dx", "dg", "dbt"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) <= tol, name
+
+
+def test_fused_ln_linear_autograd_launches_both_kernels(cuda):
+    """FusedLNLinear on the card: kernel 8 forward, kernel 9 backward, and
+    gradients within 1e-4 of the same function run on the CPU (plain)."""
+    x, g, bt, w, dy = _ln_linear_operands(cuda, torch.float32, 150, 128, 384)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (x, g, bt, w)]
+        before = dict(_build.LAUNCHES)
+        FusedLNLinear.apply(*leaves, 1e-5).backward(dy.to(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            for name in ("fused_ln_linear", "fused_ln_linear_bwd"):
+                assert _build.LAUNCHES[name] == before.get(name, 0) + 1
+        grads.append([t.grad.cpu() for t in leaves])
+    for a, b in zip(*grads):
+        assert _rel(a, b) <= 1e-4
+
+
+def test_fused_ln_linear_kernel_refuses_widths_it_does_not_take(cuda):
+    x = torch.zeros(8, 96, device=cuda)
+    with pytest.raises(ValueError, match="D % 128"):
+        fused_ln_linear(x, torch.ones(96, device=cuda),
+                        torch.zeros(96, device=cuda),
+                        torch.zeros(192, 96, device=cuda))
+
+
+def test_simmim_model_kernel_configuration_matches_plain(cuda):
+    """A small SimMIM Part-fViT on the card in fp32, training mode at rate
+    0 with a mask: the kernel configuration (``fused`` MLP, ``lnqkv``
+    attention) against the plain one, the tokens within 1e-4 and every
+    parameter gradient at cosine ≥ 1 − 1e-5, with kernels 4, 5, 8 and 9
+    launched once per layer each."""
+    arch = dict(dim=128, depth=2, heads=2, dim_head=64, mlp_dim=256,
+                num_patches=36, image_size=48, with_land=False, simmim=True,
+                loss_type="None", num_classes=0, dropout=0.0,
+                emb_dropout=0.0, drop_path_rate=0.0)
+    state = init_random_(PartFViT(PartFViTConfig(**arch)), 0).state_dict()
+    tokens = torch.rand(4, 36, 192, device=cuda) - 0.5
+    mask = (torch.rand(4, 36, device=cuda) < 0.6).float()
+    outs = []
+    for impls in (("fused", "lnqkv"), ("dense", "einsum")):
+        m = PartFViT(PartFViTConfig(**arch, mlp_impl=impls[0],
+                                    attn_impl=impls[1]))
+        m.load_state_dict(state)
+        m = m.train().to(cuda)
+        before = dict(_build.LAUNCHES)
+        _, tok, _ = m(tokens, mask=mask, return_tokens=True)
+        tok.square().sum().backward()
+        torch.cuda.synchronize()
+        launched = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                    if v != before.get(k, 0)}
+        outs.append((tok.detach(), {n: p.grad for n, p in m.named_parameters()
+                                    if p.grad is not None}, launched))
+    (tk, gk, lk), (tp, gp, lp) = outs
+    assert lk == {"fused_mlp": 2, "fused_mlp_bwd": 2, "fused_ln_linear": 2,
+                  "fused_ln_linear_bwd": 2} and lp == {}
+    assert _rel(tk, tp) <= 1e-4
+    assert set(gk) == set(gp)
+    for n in gp:
+        cos = torch.nn.functional.cosine_similarity(
+            gk[n].double().flatten(), gp[n].double().flatten(), dim=0)
+        assert cos.item() >= 1 - 1e-5, n

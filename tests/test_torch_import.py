@@ -30,4 +30,22 @@ def test_package_imports_without_jax():
     assert len(visited) >= 19  # every module was visited
     assert {f"lafs_cvpr2024_tpu_torch.{m}" for m in (
         "ops.fused_attention", "ops.mixup", "train.supervised",
-        "train.ssl", "cli.serve_embeddings")} <= visited
+        "train.ssl", "cli.serve_embeddings", "ops.fused_ln_linear",
+        "ops.patchify", "train.simmim", "train.device")} <= visited
+
+
+def test_simmim_slice_and_chip_smoke_import_without_jax():
+    """The SimMIM slice's modules and ``chip_smoke.py`` (which drives them
+    on the card) import with jax and the JAX package blocked."""
+    root = Path(__file__).resolve().parent.parent
+    script = _SCRIPT.split("import lafs_cvpr2024_tpu_torch as pkg")[0] + (
+        "import chip_smoke\n"
+        "from lafs_cvpr2024_tpu_torch.ops import fused_ln_linear, fused_mlp\n"
+        "from lafs_cvpr2024_tpu_torch.train import simmim\n"
+        "assert callable(fused_mlp.fused_mlp) and "
+        "callable(fused_ln_linear.fused_ln_linear)\n"
+        "print(sorted(chip_smoke.KERNELS))\n")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "fused_ln_linear_bwd" in proc.stdout and "fused_mlp" in proc.stdout

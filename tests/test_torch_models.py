@@ -130,8 +130,7 @@ def test_partfvit_token_path_matches_jax(jax_model):
     assert _cos(got, want).min() >= 1 - 1e-5
 
 
-@pytest.mark.parametrize("field", ["use_global_token", "simmim",
-                                   "use_standcoord"])
+@pytest.mark.parametrize("field", ["use_global_token", "use_standcoord"])
 def test_unported_variants_raise(field):
     with pytest.raises(NotImplementedError, match="not ported"):
         PartFViT(PartFViTConfig(**{**ARCH, "with_land": False, field: True}))
@@ -139,18 +138,18 @@ def test_unported_variants_raise(field):
 
 def test_eval_only_and_unported_impls_raise():
     """The image path is no longer eval only (it trains with the landmark
-    branch); what is still not ported raises: the return_tokens, x_noaug,
-    random_prob and glo_diff forward options, other margin heads, other
-    MLP impls."""
+    branch); what is still not ported raises: the x_noaug, random_prob and
+    glo_diff forward options, other margin heads, the flash attention
+    impl."""
     model = PartFViT(PartFViTConfig(**ARCH))
-    for opt in (dict(return_tokens=True), dict(random_prob=True),
-                dict(glo_diff=True), dict(x_noaug=torch.zeros(1, 48, 48, 3))):
+    for opt in (dict(random_prob=True), dict(glo_diff=True),
+                dict(x_noaug=torch.zeros(1, 48, 48, 3))):
         with pytest.raises(NotImplementedError, match="not ported"):
             model(torch.zeros(1, 48, 48, 3), **opt)
     with pytest.raises(NotImplementedError, match="ArcFace"):
         PartFViT(PartFViTConfig(**{**ARCH, "loss_type": "ArcFace"}))
-    with pytest.raises(NotImplementedError, match="mlp_impl"):
-        PartFViT(PartFViTConfig(**ARCH, mlp_impl="fused"))
+    with pytest.raises(NotImplementedError, match="attn_impl"):
+        PartFViT(PartFViTConfig(**ARCH, attn_impl="flash"))
 
 
 def test_init_random_is_seeded_and_finite():

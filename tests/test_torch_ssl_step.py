@@ -99,8 +99,8 @@ def _rel_leaf(got, want):
 
 def test_ssl_state_from_flax_has_the_port_keys(jax_run):
     states, _, _ = jax_run
-    port = ssl_state_from_flax(states[0])
-    mine = create_ssl_state(_port_cfg(), 0)
+    port = ssl_state_from_flax(states[0], device="cpu")
+    mine = create_ssl_state(_port_cfg(), 0, device="cpu")
     for a, b in ((port.student, mine.student), (port.teacher, mine.teacher),
                  (port.opt_state.mu, mine.opt_state.mu)):
         assert set(a) == set(b)
@@ -117,10 +117,10 @@ def test_three_steps_match_jax(jax_run):
     landmark = to_tensors(state_dict_from_flax(land["params"],
                                                land["batch_stats"]))
     batch = tuple(torch.from_numpy(a) for a in _crops())
-    state = ssl_state_from_flax(states[0])
+    state = ssl_state_from_flax(states[0], device="cpu")
     for i in range(3):
         state, m = step(state, landmark, *batch, **ARGS)
-        want = ssl_state_from_flax(states[i + 1])
+        want = ssl_state_from_flax(states[i + 1], device="cpu")
         assert abs(m["loss"].item() - losses[i]) <= 1e-4 * abs(losses[i]), i
         assert torch.allclose(state.center, want.center, rtol=0, atol=1e-5), i
         assert state.step == want.step and \
@@ -137,7 +137,8 @@ def test_three_steps_match_jax(jax_run):
 def port_setup():
     """The port's step with dropout, drop path, jitter and resampling on."""
     cfg = _port_cfg(local_keep_landmarks=20)
-    return (create_ssl_state(cfg, 0), create_landmark_provider(cfg, 1),
+    return (create_ssl_state(cfg, 0, device="cpu"),
+            create_landmark_provider(cfg, 1, device="cpu"),
             make_ssl_train_step(cfg),
             tuple(torch.from_numpy(a) for a in _crops()))
 

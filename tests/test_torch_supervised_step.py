@@ -157,8 +157,8 @@ def _rel_leaf(got, want):
 
 def test_supervised_state_from_flax_has_the_port_keys(jax_run):
     states, _ = jax_run
-    port = supervised_state_from_flax(states[0])
-    mine = create_state(_port_cfg(), 0)
+    port = supervised_state_from_flax(states[0], device="cpu")
+    mine = create_state(_port_cfg(), 0, device="cpu")
     for a, b in ((port.params, mine.params), (port.opt_state.mu, mine.params),
                  (port.batch_stats, mine.batch_stats)):
         assert set(a) == set(b)
@@ -183,10 +183,10 @@ def test_three_steps_match_jax(jax_run, monkeypatch):
     step = _port_step(_port_cfg())
     zero = _zero_grad_leaves(_port_cfg())
     images, labels = (torch.from_numpy(a) for a in _batch())
-    state = supervised_state_from_flax(states[0])
+    state = supervised_state_from_flax(states[0], device="cpu")
     for i in range(3):
         state, m = step(state, images, labels.long(), LR)
-        want = supervised_state_from_flax(states[i + 1])
+        want = supervised_state_from_flax(states[i + 1], device="cpu")
         assert abs(m["loss"].item() - losses[i]) <= 1e-4 * abs(losses[i]), i
         assert m["skipped_nonfinite"].item() == 0.0
         assert state.step == want.step and \
@@ -222,7 +222,7 @@ def test_fp32_gradients_match_float64(jax_run):
     plain = dict(gather_impl="gather", mlp_impl="dense", attn_impl="einsum")
     grads = {}
     for dt, model in ((torch.float32, {}), (torch.float64, plain)):
-        state = supervised_state_from_flax(states[0])
+        state = supervised_state_from_flax(states[0], device="cpu")
         state = dataclasses.replace(
             state, params={k: v.to(dt) for k, v in state.params.items()},
             batch_stats={k: v.to(dt) if v.is_floating_point() else v
@@ -246,7 +246,7 @@ def test_nonfinite_loss_skips_the_update():
     zero gradient and the count moves, as with the JAX step's zero lr
     (``supervised.py:636-663``). A clean batch then steps."""
     cfg = _port_cfg(input_scale=None)
-    state = create_state(cfg, 0)
+    state = create_state(cfg, 0, device="cpu")
     step = _port_step(cfg)
     labels = torch.tensor([1, 2, 3, 4])
     bad = torch.full((4, 48, 48, 3), float("nan"))
@@ -277,7 +277,7 @@ def test_step_is_a_pure_function_of_seed_and_step():
                                drop_path_rate=0.1),
                     mixup=MixupConfig(mixup_alpha=0.2, cutmix_alpha=1.0,
                                       prob=1.0, num_classes=10))
-    state = create_state(cfg, 0)
+    state = create_state(cfg, 0, device="cpu")
     step = make_train_step(cfg)
     images, labels = (torch.from_numpy(a) for a in _batch())
     a, ma = step(state, images, labels.long(), 1e-3)
@@ -303,7 +303,7 @@ def test_unported_options_raise(over):
 def test_landmark_leaf_names_cover_the_loose_set():
     """The LOOSE prefixes name exactly the landmark CNN, its head and the
     patch embedding: every other leaf is held at 1e-4."""
-    names = create_state(_port_cfg(), 0).params
+    names = create_state(_port_cfg(), 0, device="cpu").params
     loose = {k for k in names if k.startswith(LOOSE)}
     assert all(re.match(r"(stn\.features\.\d+\.|output_layer\.|"
                         r"patch_to_embedding\.)", k) for k in loose)
