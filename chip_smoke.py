@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``lafs_cvpr2024_tpu_torch/csrc`` and
-drives its four paths at the full width of Part-fViT-B (dim 768, depth 12,
+drives its five paths at the full width of Part-fViT-B (dim 768, depth 12,
 11 heads × 64, mlp 2048, 196 landmarks, MobileNetV3-large stem, 112×112
 input, bf16) with random weights from ``--seed``: the embedding server, the
-SSL training step, the supervised finetuning step and the SimMIM
-pretraining step. Phases, one line each:
+SSL training step, the supervised finetuning step, the SimMIM
+pretraining step and the SSL pretraining CLI on JPEG records. Phases, one
+line each:
 
 1. the device (and ``nvidia-smi``'s name and power limit);
 2. kernel 1 (patch gather) against its plain PyTorch version at
@@ -84,18 +85,46 @@ pretraining step. Phases, one line each:
     the weights and the mask token moved; then one step of both
     configurations at every rate 0 from the same state, tokens and mask:
     loss within 1e-3 relative, every gradient leaf at cosine ≥ 0.999; and
-    one step of the grid variant (``use_landmarks=False``).
+    one step of the grid variant (``use_landmarks=False``);
+15. kernels 11a-c (flash attention forward, dK/dV, dQ) against their plain
+    versions at the SSL step's flash calls, globals (64, 11, 197, 64) and
+    locals (256, 11, 37, 64), and at N = 128, 130 and 1,024, on strided
+    ``to_qkv`` views, bf16 (2e-2) and fp32 (1e-5), the fp32 logsumexp to
+    1e-5 and ``scaled_dot_product_attention``'s output to the same bars;
+    kernel, plain, SDPA forward and autograd-backward and bound ms at the
+    step's two shapes;
+16. the card's JPEG decoder (nvJPEG with libjpeg's chroma upsampling)
+    against PIL's decode of the fixture ``tests/data/ssl_rec`` (4:2:0
+    records, and one face each in 4:4:4, 4:2:2 and grayscale): mean
+    absolute difference ≤ 1 level, the maximum printed, 64 images timed;
+    and the prefetcher's batches over 3 epochs while the default stream is
+    busy, each equal to a plain decode of its records;
+17. the SSL step as ``cli/train_ssl.py --attn-impl flash --device-aug``
+    runs it, on 32 decoded fixture images (the LAFS multi-crop inside the
+    step): 2 warm-up and ``SSL_FLASH_TIMED`` timed steps of the kernel
+    configuration (gather kernel, ``fused_ln``, flash) and the plain one
+    (``gather``, ``dense``, einsum), imgs/s, 11a-c launches per step
+    (36 / 24 / 24); then one step at every rate 0 from the same state and
+    crops, the flash kernels against their plain versions in the same
+    configuration: loss within 1e-4 relative, gradient cosine ≥ 0.9995;
+18. ``python -m lafs_cvpr2024_tpu_torch.cli.train_ssl --config
+    configs/ssl_ms1m.toml --attn-impl flash`` at full width on the fixture
+    (batch 32, 2 epochs, ``--warmup-epochs 1 --saveckp-steps 3``) in
+    subprocesses: a straight run (finite losses in ``log.txt``, imgs/s)
+    and, beside it on the same card, a run stopped by SIGTERM during its
+    first step and run again, whose final state must equal the straight
+    run's (≤ 1e-6 relative).
 
 Any failure raises (non-zero exit); without CUDA it exits non-zero before
 printing any result. The last lines are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` adds a torch.profiler run of both configurations at the
-served shape, of two SSL steps and of one supervised and one SimMIM step
-of each configuration: one table of device time by kernel per run in DIR,
+served shape, of two SSL steps (phase 8's and phase 17's) and of one
+supervised and one SimMIM step of each configuration: one table of device time by kernel per run in DIR,
 a line with the wall and busy device time, device time summed by kind of
-kernel, and one step timed part by part (SSL: tokens, teacher, student
-forward and backward, tail; supervised: microbatches forward and
+kernel, and one step timed part by part (SSL: the multi-crop in phase
+17's, tokens, teacher, student forward and backward, tail; supervised: microbatches forward and
 backward, update; SimMIM: tokens and mask, forward and backward, clip and
 AdamW).
 
@@ -108,10 +137,13 @@ memory rate, from the shapes this run measured (``bound``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
 import os
+import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -123,6 +155,10 @@ import torch.nn.functional as F
 
 from lafs_cvpr2024_tpu_torch import _build
 from lafs_cvpr2024_tpu_torch.cli import serve_embeddings
+from lafs_cvpr2024_tpu_torch.data.dataset import FaceRecordDataset
+from lafs_cvpr2024_tpu_torch.data.decode import DECODER, decode_batch
+from lafs_cvpr2024_tpu_torch.data.decode import library as decode_lib
+from lafs_cvpr2024_tpu_torch.data.pipeline import EpochSampler, Prefetcher
 from lafs_cvpr2024_tpu_torch.models.layers import DropoutRNG, FeedForward
 from lafs_cvpr2024_tpu_torch.models.mobilenet import FlaxBatchNorm2d
 from lafs_cvpr2024_tpu_torch.models.partfvit import (
@@ -130,7 +166,18 @@ from lafs_cvpr2024_tpu_torch.models.partfvit import (
     PartFViTConfig,
     init_random_,
 )
-from lafs_cvpr2024_tpu_torch.ops.augment_device import scale_uint8
+from lafs_cvpr2024_tpu_torch.ops import flash_attention as flash_ops
+from lafs_cvpr2024_tpu_torch.ops.augment_device import (
+    lafs_multicrop_device,
+    scale_uint8,
+)
+from lafs_cvpr2024_tpu_torch.ops.flash_attention import (
+    flash_attention_bwd_dkv_cuda,
+    flash_attention_bwd_dq_cuda,
+    flash_attention_bwd_plain,
+    flash_attention_fwd_cuda,
+    flash_attention_plain,
+)
 from lafs_cvpr2024_tpu_torch.ops.fused_attention import (
     fused_attention_bwd_cuda,
     fused_attention_bwd_plain,
@@ -158,6 +205,7 @@ from lafs_cvpr2024_tpu_torch.ops.fused_mlp import (
 from lafs_cvpr2024_tpu_torch.ops.mixup import MixupConfig
 from lafs_cvpr2024_tpu_torch.ops.patch_gather import patch_gather_plain
 from lafs_cvpr2024_tpu_torch.ops.patch_gather_cuda import patch_gather_cuda
+from lafs_cvpr2024_tpu_torch.train.checkpoint import TrainingCheckpointer
 from lafs_cvpr2024_tpu_torch.train.simmim import (
     SimMIMConfig,
     create_simmim_state,
@@ -166,6 +214,7 @@ from lafs_cvpr2024_tpu_torch.train.simmim import (
 from lafs_cvpr2024_tpu_torch.train.simmim import step_seeds as sim_seeds
 from lafs_cvpr2024_tpu_torch.train.ssl import (
     SSLConfig,
+    aug_seed,
     create_landmark_provider,
     create_ssl_state,
     make_ssl_train_step,
@@ -181,7 +230,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join("build", "smoke")  # relative: short unix-socket paths
 BATCH = 64                             # served batch; 128 images with flip
 TOKENS = 2 * BATCH * 197               # MLP rows of one served forward
-SERVE_S = 10.0                         # length of each timed serving window
+SERVE_S = 5.0                          # length of each timed serving window
 CONFIGS = {"kernel": ("kernel", "fused_ln"), "plain": ("gather", "dense")}
 KERNELS = {
     "patch_gather": dict(
@@ -211,6 +260,18 @@ KERNELS = {
     "fused_ln_linear_bwd": dict(
         source="lafs_cvpr2024_tpu_torch/csrc/fused_ln_linear_bwd.cu",
         replaces="lafs_cvpr2024_tpu/ops/fused_ln_linear.py:61"),
+    # row 11: models/layers.py:254 (_flash_attention) calls JAX's TPU flash
+    # attention; its three pallas_calls, in jax 0.9.0's
+    # jax/experimental/pallas/ops/tpu/flash_attention.py
+    "flash_attention": dict(
+        source="lafs_cvpr2024_tpu_torch/csrc/flash_attention.cu",
+        replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:331"),
+    "flash_attention_bwd_dkv": dict(
+        source="lafs_cvpr2024_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:796"),
+    "flash_attention_bwd_dq": dict(
+        source="lafs_cvpr2024_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:1146"),
 }
 SERVE_KERNELS = ("patch_gather", "fused_ln_mlp")
 SSL_KERNELS = ("patch_gather", "fused_ln_mlp", "fused_ln_mlp_bwd")
@@ -223,7 +284,7 @@ DROP_SEED = 123456789                  # the kernels' int dropout seed
 SUP_BATCH, SUP_ACC = 200, 3            # configs/finetune_webface4m.toml
 SUP_CLASSES = 205990
 SUP_LR = 3e-4
-SUP_TIMED = 3                          # timed supervised steps per config
+SUP_TIMED = 2                          # timed supervised steps per config
 SUP_CONFIGS = {"kernel": ("kernel", "fused_ln", "fused"),
                "plain": ("gather", "dense", "einsum")}
 # (B, H, S) of one attention call of the supervised step, and ragged S
@@ -238,6 +299,22 @@ SIM_CONFIGS = {"kernel": ("kernel", "fused", "lnqkv"),
                "plain": ("gather", "dense", "einsum")}
 SIM_ARGS = dict(lr=1e-4, wd=0.05)      # cli/train_simmim.py's defaults
 QKV_O = 3 * 11 * 64                    # to_qkv width of Part-fViT-B: 2,112
+# the SSL CLI slice: (B, H, N) of the step's flash calls (2 globals of 197
+# tokens, 8 locals of 37), ragged and long N, and the expected launches
+FLASH_SHAPES = {"global": (2 * SSL_BATCH, 11, 197),
+                "local": (8 * SSL_BATCH, 11, 37)}
+FLASH_EXTRA = ((8, 11, 128), (8, 11, 130), (4, 11, 1024))
+FLASH_KERNELS = ("flash_attention", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq")
+# per step: the teacher's 12 layers on the globals, the student's 12 on
+# the globals and 12 on the locals; backward on the student's 24
+FLASH_PER_STEP = {"flash_attention": 36, "flash_attention_bwd_dkv": 24,
+                  "flash_attention_bwd_dq": 24}
+SSL_FLASH_CONFIGS = {"kernel": ("kernel", "fused_ln", "flash"),
+                     "plain": ("gather", "dense", "einsum")}
+SSL_FLASH_TIMED = 5                    # timed steps per configuration
+FIXTURE = os.path.join("tests", "data", "ssl_rec")  # 64 JPEGs, 112x112
+CLI_TIMEOUT_S = 300
 # the card's peaks for the bounds: H100 SXM data sheet (dense bf16 tensor
 # cores; fp32 outside the tensor cores, TF32 off), HBM3 rate
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -700,6 +777,8 @@ def phase_attn_bwd(dev, seed: int) -> dict:
             if i == 0:
                 leaves = [t.detach().requires_grad_() for t in (q, k, v)]
                 o = einsum_attention(*leaves, ATTN_SCALE)
+                o_sdpa = F.scaled_dot_product_attention(*leaves,
+                                                        scale=ATTN_SCALE)
                 res = dict(
                     max_abs_err=max(e for e, _ in errs.values()),
                     rel_err=worst,
@@ -709,15 +788,18 @@ def phase_attn_bwd(dev, seed: int) -> dict:
                         q, k, v, do, ATTN_SCALE), iters=5),
                     einsum_ms=cuda_ms(lambda: torch.autograd.grad(
                         o, leaves, do, retain_graph=True)),
-                    library_ms=None,
+                    # the one PyTorch call that computes the same function
+                    library_ms=cuda_ms(lambda: torch.autograd.grad(
+                        o_sdpa, leaves, do, retain_graph=True)),
                     # recomputed scores, dV, dA, dQ, dK: five products
                     **bound(10 * b * h * s * s * 64, nbytes(q, k, v, do, *got),
                             dtype))
-                del o
+                del o, o_sdpa
                 out[name] = res
                 times = (f" kernel_ms={res['ms']:.4f} plain_ms="
                          f"{res['plain_ms']:.4f} einsum_autograd_ms="
-                         f"{res['einsum_ms']:.4f}")
+                         f"{res['einsum_ms']:.4f} sdpa_autograd_ms="
+                         f"{res['library_ms']:.4f}")
             print(f"phase 10 fused_attention_bwd ({b}, {h}, {s}, 64) {name}: "
                   "rel_err " + " ".join(f"d{n}={r:.2e}"
                                         for n, (_, r) in errs.items())
@@ -1259,6 +1341,9 @@ def phase_profile(dev, seed: int, state: dict, path: str) -> None:
 
 # kinds of device kernels, matched in order against the profiler's names
 KINDS = (
+    ("kernel 11b flash dK dV", ("flash_bwd_dkv",)),
+    ("kernel 11c flash dQ", ("flash_bwd_dq",)),
+    ("kernel 11a flash forward", ("flash_fwd_",)),
     ("kernel 7 fused attention backward", ("attn_bwd_",)),
     ("kernel 6 fused attention forward", ("attn_fwd_",)),
     ("kernel 3 fused MLP backward", ("ln_mlp_bwd_",)),
@@ -1293,11 +1378,22 @@ def by_kind(kernels, steps: int) -> dict:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
-def ssl_parts_ms(step, state, land, batch) -> dict:
-    """One SSL step timed part by part with CUDA events."""
+def ssl_parts_ms(step, state, land, batch, images=None) -> dict:
+    """One SSL step timed part by part with CUDA events; with ``images``
+    (a raw uint8 batch) the device multi-crop first, as its own part."""
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     s_land, s_glob, s_loc = step_seeds(state.seed, state.step)
     gen = torch.Generator(device=state.center.device).manual_seed(s_land)
+    crop = {}
+    if images is not None:
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        batch = lafs_multicrop_device(images, torch.Generator(
+            device=state.center.device).manual_seed(
+                aug_seed(state.seed, state.step)))
+        ev[0].record()
+        torch.cuda.synchronize()
+        crop = {"multicrop": start.elapsed_time(ev[0])}
     ev[0].record()
     g_in, l_in = step.make_tokens(land, *batch, gen)
     ev[1].record()
@@ -1311,22 +1407,29 @@ def ssl_parts_ms(step, state, land, batch) -> dict:
     ev[4].record()
     torch.cuda.synchronize()
     names = ("tokens", "teacher_fwd", "student_fwd_bwd", "tail")
-    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+    return {**crop, **{n: ev[i].elapsed_time(ev[i + 1])
+                       for i, n in enumerate(names)}}
 
 
-def phase_ssl_profile(dev, ssl: dict, path: str) -> None:
+def phase_ssl_profile(dev, ssl: dict, path: str, flash: bool = False) -> None:
     """Two profiled SSL steps per configuration after a warm-up step: the
     device time by kernel (table in DIR) and by kind, busy and idle share
-    against the CUDA-event wall time, and one step timed part by part."""
+    against the CUDA-event wall time, and one step timed part by part.
+    ``flash``: the configurations of phase 17 on its raw uint8 batch (the
+    device multi-crop inside the step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(path, exist_ok=True)
     state0, land, batch = ssl["state0"], ssl["land"], ssl["batch"]
-    for config in CONFIGS:
-        step = make_ssl_train_step(ssl_cfg(config))
+    configs = SSL_FLASH_CONFIGS if flash else CONFIGS
+    tag = "ssl_flash" if flash else "ssl"
+    for config in configs:
+        step = make_ssl_train_step(ssl_flash_cfg(config) if flash
+                                   else ssl_cfg(config))
         state, _ = step(state0, land, *batch, **SSL_ARGS)
-        parts = ssl_parts_ms(step, state, land, batch)
+        parts = (ssl_parts_ms(step, state, land, None, batch[0]) if flash
+                 else ssl_parts_ms(step, state, land, batch))
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -1346,13 +1449,13 @@ def phase_ssl_profile(dev, ssl: dict, path: str) -> None:
         events = prof.key_averages()
         kernels = [e for e in events if e.device_type == DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in kernels) / 2 / 1e3
-        with open(os.path.join(path, f"profile_ssl_{config}.txt"), "w") as f:
+        with open(os.path.join(path, f"profile_{tag}_{config}.txt"), "w") as f:
             f.write(events.table(sort_by="self_device_time_total",
                                  row_limit=120))
-        require(busy > 0, f"the profiler saw no device time for SSL {config}")
+        require(busy > 0, f"the profiler saw no device time for {tag} {config}")
         kinds = " ".join(f"{k}={v:.2f}" for k, v in by_kind(kernels, 2).items())
         part_txt = " ".join(f"{k}={v:.2f}" for k, v in parts.items())
-        print(f"phase P profile ssl {config}: wall_ms={wall:.3f} "
+        print(f"phase P profile {tag} {config}: wall_ms={wall:.3f} "
               f"busy_ms={busy:.3f} idle={1 - busy / wall:.3f}; parts_ms "
               f"{part_txt}; device_ms_by_kind {kinds} -> {path}", flush=True)
         del s, state
@@ -1480,6 +1583,366 @@ def phase_serve(dev, seed: int, state: dict) -> dict:
     return launches
 
 
+# ------------------------------------------ the SSL CLI slice (15-18) --
+
+def flash_operands(dev, dtype, b: int, h: int, n: int, seed: int):
+    """q, k, v as strided views of one ``to_qkv`` output and a dO, as
+    :func:`attn_operands` makes them, with the plain forward's O and lse
+    (the backward kernels' other inputs) and di = rowsum(O dO)."""
+    q, k, v, do = attn_operands(dev, dtype, b, h, n, seed)
+    o, lse = flash_attention_plain(q, k, v, ATTN_SCALE)
+    return q, k, v, do, o, lse, (o.float() * do.float()).sum(-1)
+
+
+def flash_bounds(q, k, v, do, o, lse, di, dtype) -> dict:
+    """Bounds of 11a (2 products), 11b (4: s, dp, dV, dK) and 11c (3: s, dp,
+    dQ) on the real rows, each input read once, each output written once."""
+    b, h, n, d = q.shape
+    mm = 2 * b * h * n * n * d
+    return {"flash_attention": bound(2 * mm, nbytes(q, k, v, o, lse), dtype),
+            "flash_attention_bwd_dkv": bound(
+                4 * mm, nbytes(q, k, v, do, lse, di, k, v), dtype),
+            "flash_attention_bwd_dq": bound(
+                3 * mm, nbytes(q, k, v, do, lse, di, q), dtype)}
+
+
+def phase_flash(dev, seed: int) -> dict:
+    """Kernels 11a-c against their plain versions at the SSL step's global
+    and local shapes and at N = 128, 130, 1024, on strided ``to_qkv``
+    views, bf16 and fp32; SDPA's output held to the same bar; kernel,
+    plain, SDPA and bound ms at the step's two shapes in bf16."""
+    out = {}
+    shapes = [("global", FLASH_SHAPES["global"]),
+              ("local", FLASH_SHAPES["local"])]
+    shapes += [(f"N={s[2]}", s) for s in FLASH_EXTRA]
+    for i, (name, (b, h, n)) in enumerate(shapes):
+        for dtype, tol in ATTN_TOLS:
+            ops = flash_operands(dev, dtype, b, h, n, seed + 40 + i)
+            q, k, v, do, o_p, lse_p, di = ops
+            o, lse = flash_attention_fwd_cuda(q, k, v, ATTN_SCALE)
+            dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse_p, di,
+                                                  ATTN_SCALE)
+            dq = flash_attention_bwd_dq_cuda(q, k, v, do, lse_p, di,
+                                             ATTN_SCALE)
+            want = flash_attention_bwd_plain(q, k, v, o_p, lse_p, do,
+                                             ATTN_SCALE)
+            sdpa = F.scaled_dot_product_attention(q, k, v, scale=ATTN_SCALE)
+            torch.cuda.synchronize()
+            got = (o, dq, dk, dv)
+            require(all(t.shape == (b, h, n, 64) and t.dtype == dtype
+                        and bool(torch.isfinite(t).all()) for t in got),
+                    f"flash outputs at {name} in {dtype}")
+            errs = {"o": rel_err(o, o_p), "lse": rel_err(lse, lse_p),
+                    "dq": rel_err(dq, want[0]), "dk": rel_err(dk, want[1]),
+                    "dv": rel_err(dv, want[2]), "sdpa": rel_err(sdpa, o_p)}
+            ok = (errs["lse"][1] <= 1e-5
+                  and all(r <= tol for key, (_, r) in errs.items()
+                          if key != "lse"))
+            dt = dtype_name(dtype)
+            times = ""
+            if dtype == torch.bfloat16 and name in FLASH_SHAPES:
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                o_sdpa = F.scaled_dot_product_attention(*leaves,
+                                                        scale=ATTN_SCALE)
+                res = dict(
+                    errs=errs,
+                    ms={"flash_attention": cuda_ms(
+                            lambda: flash_attention_fwd_cuda(q, k, v,
+                                                             ATTN_SCALE)),
+                        "flash_attention_bwd_dkv": cuda_ms(
+                            lambda: flash_attention_bwd_dkv_cuda(
+                                q, k, v, do, lse_p, di, ATTN_SCALE)),
+                        "flash_attention_bwd_dq": cuda_ms(
+                            lambda: flash_attention_bwd_dq_cuda(
+                                q, k, v, do, lse_p, di, ATTN_SCALE))},
+                    plain_fwd_ms=cuda_ms(lambda: flash_attention_plain(
+                        q, k, v, ATTN_SCALE), iters=5),
+                    plain_bwd_ms=cuda_ms(lambda: flash_attention_bwd_plain(
+                        q, k, v, o_p, lse_p, do, ATTN_SCALE), iters=5),
+                    sdpa_fwd_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, scale=ATTN_SCALE)),
+                    sdpa_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
+                        o_sdpa, leaves, do, retain_graph=True)),
+                    bounds=flash_bounds(*ops, dtype))
+                del o_sdpa
+                out[name] = res
+                times = (" ms: " + " ".join(
+                    f"{k_}={v_:.4f} (bound {res['bounds'][k_]['bound_ms']:.4f}"
+                    f" {res['bounds'][k_]['bound_by']})"
+                    for k_, v_ in res["ms"].items())
+                    + f" plain_fwd={res['plain_fwd_ms']:.4f} plain_bwd="
+                    f"{res['plain_bwd_ms']:.4f} sdpa_fwd="
+                    f"{res['sdpa_fwd_ms']:.4f} sdpa_bwd="
+                    f"{res['sdpa_bwd_ms']:.4f}")
+            print(f"phase 15 flash ({b}, {h}, {n}, 64) {name} {dt}: rel_err "
+                  + " ".join(f"{k_}={r:.2e}" for k_, (_, r) in errs.items())
+                  + f" (tol {tol:g}, lse 1e-5){times} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            require(ok, f"kernels 11a-c or SDPA disagree at {name} in {dt}")
+    return out
+
+
+def fixture_batch(dev, n: int):
+    """The first ``n`` JPEGs of the fixture, decoded on the card."""
+    ds = FaceRecordDataset(os.path.join(FIXTURE, "train.rec"))
+    jpegs, _ = ds.fetch_batch(range(n))
+    return decode_batch(jpegs, dev, ds.bgr)
+
+
+def level_diff(got: torch.Tensor, ref: np.ndarray):
+    """(mean, max) absolute difference in levels of two uint8 batches."""
+    d = np.abs(got.cpu().numpy().astype(np.int32) - ref.astype(np.int32))
+    return float(d.mean()), int(d.max())
+
+
+def prefetch_under_load(ds, ref: torch.Tensor, dev) -> int:
+    """Batches the ``Prefetcher`` hands out over 3 epochs while the default
+    stream is kept busy (as a training step keeps it) that differ from the
+    plain decode ``ref`` of the same records."""
+    sampler = EpochSampler(len(ds), SSL_BATCH, seed=0)
+    pre = Prefetcher(ds, sampler, dev)
+    busy = torch.randn(8192, 8192, device=dev)
+    bad = 0
+    for epoch in range(3):
+        idx = sampler.epoch_indices(epoch)
+        for it, (imgs, _) in enumerate(pre.epoch(epoch)):
+            for _ in range(2):
+                busy = busy @ busy
+                busy = busy / busy.norm()
+            rows = torch.as_tensor(idx[it * SSL_BATCH:(it + 1) * SSL_BATCH],
+                                   device=dev)
+            bad += not torch.equal(imgs, ref[rows])
+    torch.cuda.synchronize()
+    return bad
+
+
+def phase_decode(dev) -> torch.Tensor:
+    """The card's decoder against PIL's decode: the fixture's first 4
+    records (4:2:0) and one face each in 4:4:4, 4:2:2 and grayscale, mean
+    absolute difference ≤ 1 level; the decoder's build and a batch of 64
+    timed. Returns the decoded batch of 32 the SSL phases train on."""
+    t0 = time.perf_counter()
+    decode_lib()
+    built_s = time.perf_counter() - t0
+    ref = np.load(os.path.join(FIXTURE, "decoded_ref.npy"))
+    got = fixture_batch(dev, 4)
+    diffs = {"4:2:0 records": level_diff(got, ref)}
+    layouts = np.load(os.path.join(FIXTURE, "layouts_ref.npy"))
+    for i, name in enumerate(("444", "422", "gray")):
+        with open(os.path.join(FIXTURE, f"layout_{name}.jpg"), "rb") as f:
+            one = decode_batch([f.read()], dev)
+        diffs[name] = level_diff(one, layouts[i:i + 1])
+    ds = FaceRecordDataset(os.path.join(FIXTURE, "train.rec"))
+    jpegs, _ = ds.fetch_batch(range(64))
+    ms = cuda_ms(lambda: decode_batch(jpegs, dev), iters=5, warmup=1)
+    bad = prefetch_under_load(ds, decode_batch(jpegs, dev), dev)
+    ok = (got.shape == ref.shape and bad == 0
+          and all(m <= 1.0 for m, _ in diffs.values()))
+    print(f"phase 16 decode: decoder {DECODER} (libnvjpeg + libjpeg's "
+          f"upsampling) built/loaded in {built_s:.1f} s; vs PIL, mean/max abs"
+          " diff in levels (tol mean 1): " + "; ".join(
+              f"{k} {m:.4f}/{x}" for k, (m, x) in diffs.items())
+          + f"; 64 images of 112x112 in {ms:.3f} ms; prefetched batches "
+          f"under a busy default stream unlike the plain decode: {bad} of 6 "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, "the card's JPEG decode disagrees with PIL's")
+    return fixture_batch(dev, SSL_BATCH)
+
+
+def ssl_flash_cfg(config: str, rate: float = 0.1) -> SSLConfig:
+    """The SSL recipe of phase 8 with attention and the device multi-crop
+    of the CLI's ``--attn-impl flash --device-aug``."""
+    gather_impl, mlp_impl, attn_impl = SSL_FLASH_CONFIGS[config]
+    cfg = ssl_cfg("kernel", rate)
+    model = dataclasses.replace(cfg.model, gather_impl=gather_impl,
+                                mlp_impl=mlp_impl, attn_impl=attn_impl)
+    return dataclasses.replace(cfg, model=model, fused_device_aug=True)
+
+
+@contextlib.contextmanager
+def flash_plain_on_card():
+    """Route ``ops.flash_attention`` on CUDA tensors to its plain versions
+    (the oracle configuration of the rate-0 comparison)."""
+    saved = (flash_ops.flash_attention_fwd_cuda,
+             flash_ops.flash_attention_bwd_cuda)
+    flash_ops.flash_attention_fwd_cuda = flash_attention_plain
+    flash_ops.flash_attention_bwd_cuda = flash_attention_bwd_plain
+    try:
+        yield
+    finally:
+        (flash_ops.flash_attention_fwd_cuda,
+         flash_ops.flash_attention_bwd_cuda) = saved
+
+
+def phase_ssl_flash(dev, seed: int, images: torch.Tensor) -> dict:
+    """The SSL step as the CLI runs it: the raw uint8 batch of 32 decoded
+    images, the device multi-crop inside the step, flash attention."""
+    state0 = create_ssl_state(ssl_flash_cfg("kernel"), seed, dev)
+    land = create_landmark_provider(ssl_flash_cfg("kernel"), seed + 1, dev)
+    out = {}
+    for config in SSL_FLASH_CONFIGS:
+        step = make_ssl_train_step(ssl_flash_cfg(config))
+        state = state0
+        for _ in range(2):
+            state, m = step(state, land, images, None, None, None, **SSL_ARGS)
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        for _ in range(SSL_FLASH_TIMED):
+            state, m = step(state, land, images, None, None, None, **SSL_ARGS)
+        loss = m["loss"].item()
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / SSL_FLASH_TIMED
+        launches = dict(_build.LAUNCHES)
+        per_step = {k: launches.get(k, 0) / SSL_FLASH_TIMED
+                    for k in FLASH_KERNELS}
+        ok = np.isfinite(loss) and state.step == 2 + SSL_FLASH_TIMED
+        if config == "kernel":
+            out["launches"] = launches
+            ok = ok and per_step == FLASH_PER_STEP
+        else:
+            ok = ok and not any(launches.values())
+        out[config] = dict(step_ms=step_s * 1e3,
+                           imgs_per_s=SSL_BATCH / step_s, loss=loss)
+        print(f"phase 17 ssl flash+device-aug {config} "
+              f"{SSL_FLASH_CONFIGS[config]}: step_ms={step_s * 1e3:.2f} "
+              f"imgs_per_s={SSL_BATCH / step_s:.1f} loss_after_"
+              f"{2 + SSL_FLASH_TIMED}_steps={loss:.5f} flash launches per step"
+              f" {per_step} (want {FLASH_PER_STEP if config == 'kernel' else 0})"
+              f" {'ok' if ok else 'FAIL'}", flush=True)
+        require(ok, f"SSL flash step checks failed ({config})")
+        del state, m
+    # rate 0, one step from the same state and crops: the kernels against
+    # the same configuration with flash attention's plain versions
+    cfg0 = ssl_flash_cfg("kernel", 0.0)
+    steps = {c: make_ssl_train_step(cfg0) for c in ("kernel", "plain")}
+    s_land, s_glob, s_loc = step_seeds(state0.seed, state0.step)
+    crops = lafs_multicrop_device(
+        images, torch.Generator(device=dev).manual_seed(
+            aug_seed(state0.seed, state0.step)),
+        local_crops_number=cfg0.local_crops_number,
+        out_size=cfg0.model.image_size,
+        global_crops_scale=cfg0.global_crops_scale)
+    g_in, l_in = steps["kernel"].make_tokens(
+        land, *crops, torch.Generator(device=dev).manual_seed(s_land))
+    res = {}
+    for c, st in steps.items():
+        with (flash_plain_on_card() if c == "plain"
+              else contextlib.nullcontext()):
+            t_out = st.teacher_forward(state0, g_in)
+            loss, _, grads = st.student_loss_and_grads(
+                state0, g_in, l_in, t_out, SSL_ARGS["teacher_temp"],
+                (s_glob, s_loc))
+        res[c] = (loss.item(), grads)
+    (lk, gk), (lp, gp) = res["kernel"], res["plain"]
+    rel = abs(lk - lp) / abs(lp)
+    cos = grad_cosines(gk, gp)
+    worst = min(cos, key=cos.get)
+    ok = rel <= 1e-4 and cos[worst] >= 0.9995
+    print(f"phase 17 ssl flash kernels vs their plain versions at rate 0: "
+          f"loss {lk:.6f} vs {lp:.6f} (rel {rel:.2e}, tol 1e-4); gradient "
+          f"cosine min {cos[worst]:.6f} ({worst}) over {len(cos)} leaves "
+          f"(tol 0.9995) {'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, "the flash kernels change the SSL step")
+    out.update(state0=state0, land=land, batch=(images, None, None, None))
+    return out
+
+
+def cli_cmd(out: str, seed: int):
+    """The port's SSL CLI at full width on the fixture (--warmup-epochs 1:
+    the preset's 10 warm-up epochs do not fit in 2)."""
+    return [sys.executable, "-u", "-m", "lafs_cvpr2024_tpu_torch.cli.train_ssl",
+            "--config", "configs/ssl_ms1m.toml", "--attn-impl", "flash",
+            "--data-path", FIXTURE, "--output-dir", out,
+            "--batch-size-per-chip", str(SSL_BATCH), "--random-subset", "1.0",
+            "--epochs", "2", "--warmup-epochs", "1", "--saveckp-steps", "3",
+            "--seed", str(seed)]
+
+
+def start_cli(out: str, seed: int) -> subprocess.Popen:
+    return subprocess.Popen(cli_cmd(out, seed), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finish_cli(proc: subprocess.Popen, sigterm_at_start: bool = False) -> str:
+    """Wait for a CLI run (after a SIGTERM right when it starts training,
+    if asked); its stdout. The process never outlives the call."""
+    try:
+        head = []
+        if sigterm_at_start:
+            for line in proc.stdout:
+                head.append(line)
+                if line.startswith("[train_ssl] start:"):
+                    proc.send_signal(signal.SIGTERM)  # during the first step
+                    break
+        rest, err = proc.communicate(timeout=CLI_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = "".join(head) + rest
+    require(proc.returncode == 0,
+            f"the SSL CLI failed ({proc.returncode}):\n{text[-2000:]}\n"
+            f"{err[-3000:]}")
+    return text
+
+
+def final_state(out: str) -> dict:
+    ck = TrainingCheckpointer(os.path.join(out, "ckpt"))
+    payload, step = ck.restore("cpu")
+    require(step == 4, f"{out}: the last checkpoint is step {step}, not 4")
+    return payload
+
+
+def phase_cli(seed: int) -> dict:
+    """``python -m lafs_cvpr2024_tpu_torch.cli.train_ssl`` at full width on
+    the fixture: 2 epochs straight; then a run stopped by SIGTERM in its
+    first step and run again, which must end with the straight run's state
+    (≤ 1e-6 relative per tensor)."""
+    torch.cuda.empty_cache()
+    base = os.path.join(WORK, "cli")
+    shutil.rmtree(base, ignore_errors=True)
+    straight, preempted = (os.path.join(base, s) for s in ("a", "b"))
+    # the straight run beside the stopped-and-resumed one, on the same card
+    t0 = time.perf_counter()
+    runs = [start_cli(straight, seed), start_cli(preempted, seed)]
+    try:
+        stopped = finish_cli(runs[1], sigterm_at_start=True)
+        resumed = finish_cli(start_cli(preempted, seed))
+        text = finish_cli(runs[0])
+    finally:
+        for proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    both_s = time.perf_counter() - t0
+    rates = [float(x.split("imgs_per_s=")[1].split()[0])
+             for x in text.splitlines() if "imgs_per_s=" in x]
+    with open(os.path.join(straight, "log.txt")) as f:
+        log = [json.loads(line) for line in f if line.strip()]
+    logged = [r["train_loss"] for r in log]
+    want, got = final_state(straight), final_state(preempted)
+    pairs = [(f"{tree}.{k}", w, got[tree][k])
+             for tree in ("student", "teacher", "opt_mu", "opt_nu")
+             for k, w in want[tree].items()]
+    pairs.append(("center", want["center"], got["center"]))
+    worst, worst_key = max((rel_err(g, w)[1], name) for name, w, g in pairs)
+    ok = (len(logged) == 2 and all(np.isfinite(logged)) and len(rates) == 2
+          and "[preempt] SIGTERM: saved step" in stopped
+          and "[resume] step" in resumed and worst <= 1e-6)
+    stop_line = next((x for x in stopped.splitlines() if "[preempt]" in x), "")
+    print(f"phase 18 cli train_ssl --config configs/ssl_ms1m.toml --attn-impl "
+          f"flash, 2 epochs of 2 steps of {SSL_BATCH}, the straight run "
+          f"beside the stopped and resumed one: {both_s:.1f} s; straight "
+          f"log.txt losses {logged}, imgs_per_s {rates}; stopped: "
+          f"{stop_line.strip()!r}; resumed to step 4: max rel diff to the "
+          f"straight run {worst:.2e} ({worst_key}, tol 1e-6) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, "the SSL CLI run, its log or its exact resume failed")
+    shutil.rmtree(base, ignore_errors=True)  # ~1 GB a checkpoint
+    return dict(imgs_per_s=rates, losses=logged, seconds=both_s)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1533,6 +1996,15 @@ def main(argv=None) -> int:
     phase_simmim_agree(dev, sim)
     if args.profile:
         phase_simmim_profile(dev, sim, args.profile)
+    sim = {"launches": sim["launches"]}  # frees the SimMIM state
+    flash = phase_flash(dev, args.seed)
+    images = phase_decode(dev)
+    ssl_flash = phase_ssl_flash(dev, args.seed, images)
+    if args.profile:
+        phase_ssl_profile(dev, ssl_flash, args.profile, flash=True)
+    ssl_flash = {"launches": ssl_flash["launches"]}
+    del images
+    phase_cli(args.seed)
 
     # each kernel's numbers at its main-path shape in bf16: the gather at the
     # served batch, kernel 2 with dropout and u at the SSL global crops' T,
@@ -1540,6 +2012,16 @@ def main(argv=None) -> int:
     # the supervised step, kernels 4, 5, 8 and 9 at the SimMIM step's T
     # (rate 0.1 for 4 and 5); launches counted on the last path that runs
     # each kernel: the SimMIM steps, else the supervised ones
+    flash_g = flash["global"]
+    measured_flash = {
+        name: dict(max_abs_err=max(flash_g["errs"][k][0] for k in keys),
+                   ms=flash_g["ms"][name],
+                   plain_ms=flash_g["plain_fwd_ms" if name == FLASH_KERNELS[0]
+                                    else "plain_bwd_ms"],
+                   library_ms=flash_g["sdpa_fwd_ms" if name == FLASH_KERNELS[0]
+                                      else "sdpa_bwd_ms"],
+                   **flash_g["bounds"][name])
+        for name, keys in zip(FLASH_KERNELS, (("o",), ("dk", "dv"), ("dq",)))}
     measured = {"patch_gather": gather["bfloat16"],
                 "fused_ln_mlp": train_fwd[("global", "bfloat16")],
                 "fused_ln_mlp_bwd": train_bwd[("global", "bfloat16", 0.1)],
@@ -1548,12 +2030,16 @@ def main(argv=None) -> int:
                 "fused_mlp": mlp_nol["bfloat16"]["fwd"],
                 "fused_mlp_bwd": mlp_nol["bfloat16"]["bwd"],
                 "fused_ln_linear": ln_linear["bfloat16"]["fwd"],
-                "fused_ln_linear_bwd": ln_linear["bfloat16"]["bwd"]}
+                "fused_ln_linear_bwd": ln_linear["bfloat16"]["bwd"],
+                **measured_flash}
     paths = {"serve": served, "ssl": ssl_launches,
-             "supervised": sup_launches, "simmim": sim["launches"]}
+             "supervised": sup_launches, "simmim": sim["launches"],
+             "ssl_flash": ssl_flash["launches"]}
     record = {"kernels": [
         dict(name=name, route="cuda", **KERNELS[name],
-             launches=sim["launches"].get(name) or sup_launches.get(name, 0),
+             launches=(sim["launches"].get(name)
+                       or sup_launches.get(name)
+                       or ssl_flash["launches"].get(name, 0)),
              launches_by_path={p: n.get(name, 0) for p, n in paths.items()},
              max_abs_err=res["max_abs_err"], ms=res["ms"],
              plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
@@ -1562,16 +2048,13 @@ def main(argv=None) -> int:
     ]}
     missing = [r["name"] for r in record["kernels"] if not r["launches"]]
     require(not missing, f"no path launched {missing}")
-    # the TPU kernels still to port, at the JAX package's shapes: row 10's
+    # the TPU kernel still to port, at the JAX package's shape: row 10's
     # bias-free fused MLP microbenchmark (benchmarks/bench_mlp_fusion.py)
-    # and row 11's flash attention at one attention call of the
-    # supervised step (the same function as kernel 6)
     t10 = 22080
     b10 = bound(4 * t10 * 768 * 2048, 2 * (2 * t10 * 768 + 2 * 768 * 2048))
-    print(f"bounds of the kernels still to port: row 10 (T={t10}, 768 -> "
-          f"2048, bf16) {b10['bound_ms']:.4f} ms ({b10['bound_by']}); row 11 "
-          f"(200, 11, 197, 64) {attn['bfloat16']['bound_ms']:.4f} ms "
-          f"({attn['bfloat16']['bound_by']})", flush=True)
+    print(f"bound of the kernel still to port: row 10 (T={t10}, 768 -> "
+          f"2048, bf16) {b10['bound_ms']:.4f} ms ({b10['bound_by']})",
+          flush=True)
     print(json.dumps(record))
     print(card())
     print(json.dumps({"ok": True, "device": {

@@ -75,6 +75,16 @@ _SIGNATURES = {
     # stream
     "lafs_fused_attention_bwd_bf16": (_P,) * 9 + (_I,) * 4 + (_F, _P),
     "lafs_fused_attention_bwd_f32": (_P,) * 9 + (_I,) * 4 + (_F, _P),
+    # q, k, v, o, lse, strides (12 int64), B, H, N, D, scale, stream
+    "lafs_flash_attention_bf16": (_P,) * 6 + (_I,) * 4 + (_F, _P),
+    "lafs_flash_attention_f32": (_P,) * 6 + (_I,) * 4 + (_F, _P),
+    # q, k, v, do, lse, di, dk, dv, strides (18 int64), B, H, N, D, scale,
+    # stream
+    "lafs_flash_attention_bwd_dkv_bf16": (_P,) * 9 + (_I,) * 4 + (_F, _P),
+    "lafs_flash_attention_bwd_dkv_f32": (_P,) * 9 + (_I,) * 4 + (_F, _P),
+    # q, k, v, do, lse, di, dq, strides (15 int64), B, H, N, D, scale, stream
+    "lafs_flash_attention_bwd_dq_bf16": (_P,) * 8 + (_I,) * 4 + (_F, _P),
+    "lafs_flash_attention_bwd_dq_f32": (_P,) * 8 + (_I,) * 4 + (_F, _P),
     "lafs_cuda_error_string": (_I,),
 }
 

@@ -21,11 +21,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.flash_attention import flash_attention
 from ..ops.fused_attention import fused_attention
 from ..ops.fused_ln_linear import fused_ln_linear
 from ..ops.fused_mlp import fused_ln_mlp, fused_mlp
 
-ATTN_IMPLS = ("einsum", "fused", "lnqkv")
+ATTN_IMPLS = ("einsum", "fused", "flash", "lnqkv")
 MLP_IMPLS = ("dense", "fused", "fused_ln")
 
 
@@ -126,7 +127,10 @@ class Attention(nn.Module):
     XLA. ``'fused'``: sequences of 128 to 512 tokens go through
     ``ops.fused_attention`` (kernels 6 and 7 on the card; fp32 softmax),
     shorter and longer ones through the einsum path, as the JAX layer
-    chooses (``layers.py:218``). ``'lnqkv'``: the caller passes the
+    chooses (``layers.py:218``). ``'flash'``: every length through
+    ``ops.flash_attention`` (kernels 11a-c on the card), as the JAX layer
+    sends every length to its flash path (``layers.py:226-227``).
+    ``'lnqkv'``: the caller passes the
     pre-attention LayerNorm as ``ln`` and ``x`` un-normalised, and
     ``to_qkv`` runs as ``ops.fused_ln_linear`` (kernels 8 and 9); the
     scores stay on the einsum path (``layers.py:197-208``)."""
@@ -156,6 +160,8 @@ class Attention(nn.Module):
         )
         if self.attn_impl == "fused" and 128 <= n <= 512:
             out = fused_attention(q, k, v, self.scale)
+        elif self.attn_impl == "flash":
+            out = flash_attention(q, k, v, self.scale)
         else:
             attn = (torch.matmul(q, k.transpose(-1, -2)) * self.scale
                     ).softmax(-1)
@@ -203,9 +209,9 @@ class Transformer(nn.Module):
     its MLP alone as kernel 4 (kernel 5 backward) when ``dim`` and
     ``mlp_dim`` are multiples of 128, as the JAX block does; otherwise, and
     for ``'dense'``, plain PyTorch. ``attn_impl='fused'`` runs attention
-    through kernels 6 and 7, ``'lnqkv'`` the LayerNorm and ``to_qkv``
-    through kernels 8 and 9 when ``dim`` is a multiple of 128 (see
-    :class:`Attention`)."""
+    through kernels 6 and 7, ``'flash'`` through kernels 11a-c,
+    ``'lnqkv'`` the LayerNorm and ``to_qkv`` through kernels 8 and 9 when
+    ``dim`` is a multiple of 128 (see :class:`Attention`)."""
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
                  mlp_dim: int, dropout: float = 0.0,

@@ -1,1 +1,3 @@
-"""Ops: input scaling, the landmark patch gather and the LN-fused MLP."""
+"""Ops: input scaling and the device multi-crop, the landmark patch
+gather, the fused MLPs, the LN-fused projection, fused and flash
+attention, mixup, patchify and the SSL schedules."""

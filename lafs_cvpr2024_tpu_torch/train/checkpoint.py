@@ -358,3 +358,160 @@ def to_tensors(state_dict: Dict[str, np.ndarray]):
     import torch
 
     return {k: torch.from_numpy(np.array(v)) for k, v in state_dict.items()}
+
+
+# ----------------------------------------------------- training runs --
+# (counterpart of make_training_checkpointer, PreemptionGuard and
+# load_landmark_variables in lafs_cvpr2024_tpu/train/checkpoint.py; torch
+# files in place of orbax directories)
+
+def ssl_state_payload(state) -> dict:
+    """An ``SSLTrainState`` as a dict of tensors and ints for ``torch.save``
+    (student, teacher, AdamW count and moments, center, step, seed)."""
+    return dict(student=state.student, teacher=state.teacher,
+                opt_count=state.opt_state.count, opt_mu=state.opt_state.mu,
+                opt_nu=state.opt_state.nu, center=state.center,
+                step=state.step, seed=state.seed)
+
+
+def ssl_state_from_payload(payload: dict):
+    """Inverse of :func:`ssl_state_payload`."""
+    from .optim import AdamWState
+    from .ssl import SSLTrainState
+
+    return SSLTrainState(
+        student=payload["student"], teacher=payload["teacher"],
+        opt_state=AdamWState(count=int(payload["opt_count"]),
+                             mu=payload["opt_mu"], nu=payload["opt_nu"]),
+        center=payload["center"], step=int(payload["step"]),
+        seed=int(payload["seed"]))
+
+
+class TrainingCheckpointer:
+    """Rolling training checkpoints in one directory, ``step_<N>.pt``:
+    ``save`` writes one atomically (a temporary file, then a rename) and
+    keeps the latest ``keep`` plus, with ``keep_period``, every step that is
+    a multiple of it (the reference's permanent ``checkpoint{epoch:04}.pth``
+    every ``saveckp_freq`` epochs, ``lafs_train.py:459-463``), as the JAX
+    ``CheckpointWriter`` retains them (``train/checkpoint.py:50-116``). The
+    write is synchronous."""
+
+    def __init__(self, path: str, keep: int = 3,
+                 keep_period: Optional[int] = None):
+        self.path = path
+        self.keep = keep
+        self.keep_period = keep_period
+
+    def _file(self, step: int) -> str:
+        import os
+
+        return os.path.join(self.path, f"step_{step:09d}.pt")
+
+    def steps(self) -> list:
+        """Steps saved in the directory, ascending."""
+        import os
+
+        if not os.path.isdir(self.path):
+            return []
+        return sorted(int(f[5:-3]) for f in os.listdir(self.path)
+                      if re.fullmatch(r"step_\d+\.pt", f))
+
+    def save(self, step: int, payload: dict) -> None:
+        import os
+
+        import torch
+
+        os.makedirs(self.path, exist_ok=True)
+        tmp = self._file(step) + f".{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, self._file(step))
+        steps = self.steps()
+        latest = set(steps[-self.keep:])
+        for s in steps:
+            if s not in latest and not (self.keep_period
+                                        and s % self.keep_period == 0):
+                os.remove(self._file(s))
+
+    def restore(self, device) -> Tuple[Optional[dict], Optional[int]]:
+        """``(payload, step)`` of the latest checkpoint, its tensors on
+        ``device``; ``(None, None)`` when there is none."""
+        import torch
+
+        steps = self.steps()
+        if not steps:
+            return None, None
+        return (torch.load(self._file(steps[-1]), map_location=device,
+                           weights_only=True), steps[-1])
+
+
+class PreemptionGuard:
+    """SIGTERM-aware training (``train/checkpoint.py:118-176``): the signal
+    only sets a flag, which the train loop polls at step boundaries to
+    write one exact-resume checkpoint and exit cleanly. The previous
+    handler is chained and restored by ``uninstall()``. One process: the
+    local flag is the answer."""
+
+    def __init__(self, signals=None):
+        import signal
+
+        self._signal = signal
+        self._requested = False
+        self._prev = {}
+        for s in signals or (signal.SIGTERM,):
+            self._prev[s] = signal.signal(s, self._handler)
+
+    def _handler(self, signum, frame):
+        self._requested = True
+        prev = self._prev.get(signum)
+        if callable(prev):
+            prev(signum, frame)
+
+    @property
+    def requested(self) -> bool:
+        return self._requested
+
+    def should_exit(self, step: int) -> bool:
+        return self._requested
+
+    def uninstall(self) -> None:
+        for s, prev in self._prev.items():
+            self._signal.signal(s, prev)
+        self._prev = {}
+
+
+def load_landmark_variables(path: str, landmark: dict, log=print) -> dict:
+    """Pretrained landmark-CNN weights for the frozen provider state (the
+    ``--landmark-path`` flag; reference ``load_part_checkpoint_landmark``,
+    ``lafs_train.py:124-154``): a reference-dialect ``.pth`` (prefixes
+    stripped, a ``state_dict``/``model`` wrapper opened), its ``stn.*`` and
+    ``output_layer.*`` entries onto ``landmark``'s keys, each on its
+    device and dtype. Every provider entry must be covered with its shape,
+    or it raises: a silently random landmark CNN would poison the recipe.
+    Orbax directories are not read by the port (``NotImplementedError``)."""
+    import torch
+
+    if not path.endswith(".pth"):
+        raise NotImplementedError(
+            f"--landmark-path {path!r}: the port loads reference-dialect "
+            ".pth files; orbax checkpoint directories wait (ROADMAP.md, Open "
+            "items 1.12) — convert with lafs_cvpr2024_tpu.cli.export_torch")
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    for wrapper in ("state_dict", "model"):
+        if isinstance(raw.get(wrapper), dict):
+            raw = raw[wrapper]
+    sd = strip_prefixes(raw)
+    out, missing = {}, []
+    for k, v in landmark.items():
+        src = sd.get(k)
+        if src is None or tuple(src.shape) != tuple(v.shape):
+            missing.append(k)
+            continue
+        out[k] = src.to(device=v.device, dtype=v.dtype)
+    if missing:
+        raise ValueError(
+            f"checkpoint {path}: {len(missing)} landmark-CNN entries are "
+            f"missing or of another shape (stn_mode mismatch?); first few: "
+            f"{missing[:5]}")
+    log(f"[import landmark ckpt] {len(out)} stn/output_layer entries from "
+        f"{path}")
+    return out

@@ -15,6 +15,10 @@ One step, split as the JAX step is split (``ssl.py:392-767``):
 
 Crops are stacked crop-major, ``(2, B, …) → (2B, …)`` and
 ``(L, B, …) → (LB, …)``, so head rows come crop by crop as the loss wants.
+With ``fused_device_aug`` the step takes the raw uint8 batch (B, H, W, 3)
+on the card in place of the crops and runs the LAFS multi-crop
+(``ops/augment_device.py::lafs_multicrop_device``) first, as the JAX step
+does (``ssl.py:546-571``).
 
 Mixed precision as the JAX step does it (``ssl.py:454-478``), not by
 autocast: the fp32 master parameters are cast to ``compute_dtype`` and fed
@@ -26,11 +30,12 @@ have, as in the JAX graph.
 The step's randomness is a pure function of (state.seed, state.step), as
 the JAX step folds ``state.step`` into ``state.rng`` (``ssl.py:530``):
 three child seeds drive the landmark jitter/resampling and the dropout of
-the global and local student forwards.
+the global and local student forwards, and a fourth, keyed by 11 as JAX
+folds 11 into the step key, the device multi-crop.
 
 Not ported yet, and raising: the other archs, ``zero1``, ``glo_diff``,
-``random_coor``, ``use_bn_in_head``, a bf16 teacher, SGD/LARS, the fused
-device augmentation, and more than one GPU (ROADMAP.md, Open items).
+``random_coor``, ``use_bn_in_head``, a bf16 teacher, SGD/LARS and more
+than one GPU (ROADMAP.md, Open items).
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from ..models.partfvit import (
     PartFViTConfig,
     init_random_,
 )
+from ..ops.augment_device import lafs_multicrop_device
 from .device import CUDA, resolve
 from .losses import dino_loss
 from .optim import (
@@ -121,7 +127,6 @@ def check_supported(cfg: SSLConfig) -> None:
         (cfg.teacher_mlp_impl not in ("same", cfg.model.mlp_impl),
          f"teacher_mlp_impl={cfg.teacher_mlp_impl!r}", "1.13"),
         (cfg.optimizer != "adamw", f"optimizer={cfg.optimizer!r}", "1.13"),
-        (cfg.fused_device_aug, "fused_device_aug", "1.8"),
     ]
     for bad, what, item in unported:
         if bad:
@@ -211,6 +216,13 @@ def step_seeds(seed: int, step: int):
             np.random.SeedSequence([int(seed), int(step)]).generate_state(3)]
 
 
+def aug_seed(seed: int, step: int) -> int:
+    """The seed of one step's device multi-crop (JAX: ``fold_in(rng,
+    11)`` of the step key)."""
+    return int(np.random.SeedSequence([int(seed), int(step), 11])
+               .generate_state(1)[0])
+
+
 def make_ssl_train_step(cfg: SSLConfig) -> Callable:
     """Build ``step(state, landmark, glob_clean, glob_aug, loc_clean,
     loc_aug, lr, wd, momentum, teacher_temp, freeze_last) -> (state,
@@ -218,7 +230,9 @@ def make_ssl_train_step(cfg: SSLConfig) -> Callable:
 
     ``landmark`` is the landmark CNN's state (:func:`create_landmark_
     provider`); glob_*: (2, B, H, W, 3) and loc_*: (L, B, H, W, 3) float
-    crops in [-1, 1] on the state's device; the scalars are Python floats.
+    crops in [-1, 1] on the state's device; with ``cfg.fused_device_aug``
+    ``glob_clean`` is the raw uint8 batch (B, H, W, 3) instead and the
+    other three are ignored (pass None); the scalars are Python floats.
     Returns a new state (the input state is not written) and
     ``{"loss": 0-d tensor}``. The modules built here are templates on the
     meta device: every parameter comes from the state through
@@ -319,6 +333,13 @@ def make_ssl_train_step(cfg: SSLConfig) -> Callable:
     def step(state: SSLTrainState, landmark: Tree, glob_clean, glob_aug,
              loc_clean, loc_aug, lr, wd, momentum, teacher_temp, freeze_last):
         s_land, s_glob, s_loc = step_seeds(state.seed, state.step)
+        if cfg.fused_device_aug:
+            gen = torch.Generator(device=state.center.device).manual_seed(
+                aug_seed(state.seed, state.step))
+            glob_clean, glob_aug, loc_clean, loc_aug = lafs_multicrop_device(
+                glob_clean, gen, local_crops_number=n_loc,
+                out_size=cfg.model.image_size,
+                global_crops_scale=tuple(cfg.global_crops_scale))
         g_in, l_in = make_tokens(
             landmark, glob_clean, glob_aug, loc_clean, loc_aug,
             torch.Generator(device=state.center.device).manual_seed(s_land))

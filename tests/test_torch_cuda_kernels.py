@@ -17,7 +17,8 @@ width O. Dropout masks are the same bits: the kernels and the plain
 versions hash the same keys. The fused attention forward and backward
 agree to 1e-5 relative in fp32 and 2e-2 in bf16 (fp32 logits and softmax in
 both; the products accumulate in another order, and bf16 A and dS may
-round one ulp apart).
+round one ulp apart). So do the flash attention forward and its two
+backward kernels (11a-c) at any length N, the logsumexp within 1e-5.
 """
 
 import numpy as np
@@ -36,6 +37,14 @@ from lafs_cvpr2024_tpu_torch.ops.fused_attention import (
     fused_attention_bwd_plain,
     fused_attention_cuda,
     fused_attention_plain,
+)
+from lafs_cvpr2024_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd_cuda,
+    flash_attention_bwd_dq_cuda,
+    flash_attention_bwd_plain,
+    flash_attention_fwd_cuda,
+    flash_attention_plain,
 )
 from lafs_cvpr2024_tpu_torch.ops.fused_ln_linear import (
     FusedLNLinear,
@@ -522,3 +531,117 @@ def test_simmim_model_kernel_configuration_matches_plain(cuda):
         cos = torch.nn.functional.cosine_similarity(
             gk[n].double().flatten(), gp[n].double().flatten(), dim=0)
         assert cos.item() >= 1 - 1e-5, n
+
+
+# --------------------------------------------- kernels 11a-c (flash) --
+
+FLASH_SHAPES = [(3, 2, 1), (3, 2, 37), (2, 3, 64), (2, 3, 128), (2, 3, 130),
+                (4, 11, 197), (2, 2, 600), (1, 2, 1024)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,h,n", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, b, h, n):
+    """Kernel 11a on strided views, any N: O and the fp32 logsumexp within
+    tolerance of the plain version; O is a view of a (B, N, H, D) tensor."""
+    q, k, v, _ = _attn_operands(cuda, dtype, b, h, n, seed=7)
+    scale = 768 ** -0.5 * 4.0
+    before = _build.LAUNCHES["flash_attention"]
+    got, lse = flash_attention_fwd_cuda(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    want, lse_want = flash_attention_plain(q, k, v, scale)
+    assert got.dtype == dtype and got.shape == want.shape == (b, h, n, 64)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, n)
+    assert got.transpose(1, 2).is_contiguous()
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= tol
+    assert _rel(lse, lse_want) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,h,n", FLASH_SHAPES)
+def test_flash_attention_bwd_kernels_match_plain(cuda, dtype, tol, b, h, n):
+    """Kernels 11b (dK, dV) and 11c (dQ) against the plain backward on the
+    same O and lse, each launched once."""
+    q, k, v, do = _attn_operands(cuda, dtype, b, h, n, seed=8)
+    scale = 768 ** -0.5 * 4.0
+    o, lse = flash_attention_plain(q, k, v, scale)
+    before = dict(_build.LAUNCHES)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        assert _build.LAUNCHES[name] == before.get(name, 0) + 1
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == w.shape == (b, h, n, 64), name
+        assert bool(torch.isfinite(a).all()), name
+        if n == 1 and name != "dv":
+            # softmax over one key is constant: dQ and dK are 0 but for
+            # rounding (dp - di), in both versions; held to dV's scale
+            assert a.abs().max() <= tol * want[2].abs().max(), name
+        else:
+            assert _rel(a, w) <= tol, name
+
+
+def test_flash_attention_autograd_launches_all_kernels(cuda):
+    """FlashAttention on the card: 11a forward, 11b and 11c backward, the
+    gradients within 1e-5 of the same function run on the CPU (plain), and
+    the same bits from two runs (no atomics)."""
+    q, k, v, do = _attn_operands(cuda, torch.float32, 2, 3, 150)
+    grads = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        before = dict(_build.LAUNCHES)
+        flash_attention(*leaves, 0.1).backward(do.to(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            for name in ("flash_attention", "flash_attention_bwd_dkv",
+                         "flash_attention_bwd_dq"):
+                assert _build.LAUNCHES[name] == before.get(name, 0) + 1
+        grads.append([t.grad.cpu() for t in leaves])
+    for a, b, c in zip(*grads):
+        assert torch.equal(a, b)
+        assert _rel(a, c) <= 1e-5
+
+
+def test_flash_attention_kernel_refuses_shapes_it_does_not_take(cuda):
+    y = torch.zeros(1, 2, 16, 32, device=cuda)
+    with pytest.raises(ValueError, match="D = 64"):
+        flash_attention(y, y, y, 0.1)
+    x = torch.zeros(1, 2, 16, 64, device=cuda)
+    with pytest.raises(ValueError, match="fp32"):
+        flash_attention_bwd_dq_cuda(x, x, x, x, torch.zeros(1, 2, 16,
+                                    device=cuda, dtype=torch.bfloat16),
+                                    torch.zeros(1, 2, 16, device=cuda), 0.1)
+
+
+# ------------------------------------------------ the card's JPEG decode --
+
+def test_prefetcher_batches_under_load_match_plain_decode(cuda):
+    """The prefetcher decodes on a side stream two batches ahead; with the
+    default stream kept busy, as a training step keeps it, every batch it
+    hands out equals a plain decode of the same records on the default
+    stream (nvJPEG's queued copies once ran late and mixed images up)."""
+    from pathlib import Path
+
+    from lafs_cvpr2024_tpu_torch.data.dataset import FaceRecordDataset
+    from lafs_cvpr2024_tpu_torch.data.decode import decode_batch
+    from lafs_cvpr2024_tpu_torch.data.pipeline import EpochSampler, Prefetcher
+
+    rec = Path(__file__).resolve().parent / "data" / "ssl_rec" / "train.rec"
+    ds = FaceRecordDataset(str(rec))
+    jpegs, _ = ds.fetch_batch(range(len(ds)))
+    ref = decode_batch(jpegs, cuda)
+    assert ref.shape == (64, 112, 112, 3) and ref.dtype == torch.uint8
+    sampler = EpochSampler(len(ds), 16, seed=1)
+    busy = torch.randn(8192, 8192, device=cuda)
+    for epoch in range(2):
+        idx = torch.as_tensor(sampler.epoch_indices(epoch), device=cuda)
+        for it, (imgs, _) in enumerate(Prefetcher(ds, sampler, cuda)
+                                       .epoch(epoch)):
+            busy = busy @ busy
+            busy = busy / busy.norm()
+            assert torch.equal(imgs, ref[idx[16 * it:16 * it + 16]])

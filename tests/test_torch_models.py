@@ -139,8 +139,8 @@ def test_unported_variants_raise(field):
 def test_eval_only_and_unported_impls_raise():
     """The image path is no longer eval only (it trains with the landmark
     branch); what is still not ported raises: the x_noaug, random_prob and
-    glo_diff forward options, other margin heads, the flash attention
-    impl."""
+    glo_diff forward options, other margin heads, the packed attention
+    impls (measured-negative in the JAX package, not to port)."""
     model = PartFViT(PartFViTConfig(**ARCH))
     for opt in (dict(random_prob=True), dict(glo_diff=True),
                 dict(x_noaug=torch.zeros(1, 48, 48, 3))):
@@ -149,7 +149,7 @@ def test_eval_only_and_unported_impls_raise():
     with pytest.raises(NotImplementedError, match="ArcFace"):
         PartFViT(PartFViTConfig(**{**ARCH, "loss_type": "ArcFace"}))
     with pytest.raises(NotImplementedError, match="attn_impl"):
-        PartFViT(PartFViTConfig(**ARCH, attn_impl="flash"))
+        PartFViT(PartFViTConfig(**ARCH, attn_impl="packed_av"))
 
 
 def test_init_random_is_seeded_and_finite():

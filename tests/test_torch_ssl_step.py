@@ -203,7 +203,7 @@ def test_separate_pass_tail_matches_fused(port_setup):
     dict(random_coor=True), dict(use_bn_in_head=True),
     dict(teacher_dtype=torch.bfloat16), dict(teacher_mlp_impl="dense"),
     dict(optimizer="sgd"),
-    dict(fused_device_aug=True)])
+    dict(optimizer="lars")])
 def test_unported_options_raise(over):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_ssl_train_step(_port_cfg(**over))
