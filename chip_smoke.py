@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``lafs_cvpr2024_tpu_torch/csrc`` and
-drives its five paths at the full width of Part-fViT-B (dim 768, depth 12,
+drives its paths at the full width of Part-fViT-B (dim 768, depth 12,
 11 heads × 64, mlp 2048, 196 landmarks, MobileNetV3-large stem, 112×112
 input, bf16) with random weights from ``--seed``: the embedding server, the
 SSL training step, the supervised finetuning step, the SimMIM
-pretraining step and the SSL pretraining CLI on JPEG records. Phases, one
-line each:
+pretraining step, the SSL pretraining CLI on JPEG records, the TPU MLP
+microbenchmark's fused kernel (row 10) and the evaluation CLIs. Phases,
+one line each:
 
 1. the device (and ``nvidia-smi``'s name and power limit);
 2. kernel 1 (patch gather) against its plain PyTorch version at
@@ -113,7 +114,29 @@ line each:
     subprocesses: a straight run (finite losses in ``log.txt``, imgs/s)
     and, beside it on the same card, a run stopped by SIGTERM during its
     first step and run again, whose final state must equal the straight
-    run's (≤ 1e-6 relative).
+    run's (≤ 1e-6 relative);
+19. row 10, the bias-free fused MLP of ``benchmarks/bench_mlp_fusion.py``
+    (``ops/mlp_fusion.py``, ``csrc/mlp_fusion.cu``): its path, the
+    microbenchmark's ``main`` (T = 22,016, 768 → 2048, bf16: 1 + 30
+    chained calls at rate 0, then at rate 0.1), timed and counted; then at
+    T = 22,016, 22,080 (the row's shape) and a ragged 300, against the
+    plain version at rates 0 and 0.1 (≤ 2e-2 relative, output zeros where
+    the plain version's are), both dropout masks bit-identical (a one-hot
+    W2 on a constant hidden layer makes each output one hidden element,
+    exactly: kernel and plain outputs equal bit for bit) with each draw's
+    keep fraction within 0.9 ± 0.002; kernel, plain and
+    ``mlp_fusion_dense`` (the ``xla_mlp`` yardstick) ms;
+20. evaluation at full width from phase 5's ``.pth``, the three CLIs in
+    subprocesses beside each other: ``cli/extract_embeddings.py`` on the
+    fixture's 64 records (bf16, flip on), per-row cosine ≥ 1 − 1e-3
+    against the plain configuration's embeddings of the same decoded
+    images, kernels 1 and 2 launched; ``cli/evaluate_bin.py`` on a
+    ``.bin`` of 32 fixture pairs (fp32): a finite accuracy equal to
+    ``perform_val``'s in this process; ``cli/evaluate_ijb.py`` on
+    ``tests/data/ijb_mini``: a finite TPR@FPR table, and the card's decode
+    and warp within a mean of 1 level of the stored numpy ``norm_crop`` of
+    PIL's decode; then faces/s of both configurations over batches of 256
+    faces (the fixture's repeated), flip on.
 
 Any failure raises (non-zero exit); without CUDA it exits non-zero before
 printing any result. The last lines are the kernels' JSON record, the
@@ -142,6 +165,7 @@ import dataclasses
 import itertools
 import json
 import os
+import pickle
 import shutil
 import signal
 import subprocess
@@ -155,6 +179,13 @@ import torch.nn.functional as F
 
 from lafs_cvpr2024_tpu_torch import _build
 from lafs_cvpr2024_tpu_torch.cli import serve_embeddings
+from lafs_cvpr2024_tpu_torch.cli.evaluate_ijb import load_image_list
+from lafs_cvpr2024_tpu_torch.eval.loading import (
+    load_eval_model,
+    make_model_embed,
+)
+from lafs_cvpr2024_tpu_torch.eval.ijb import ARCFACE_SRC, umeyama
+from lafs_cvpr2024_tpu_torch.eval.verification import load_bin, perform_val
 from lafs_cvpr2024_tpu_torch.data.dataset import FaceRecordDataset
 from lafs_cvpr2024_tpu_torch.data.decode import DECODER, decode_batch
 from lafs_cvpr2024_tpu_torch.data.decode import library as decode_lib
@@ -192,6 +223,7 @@ from lafs_cvpr2024_tpu_torch.ops.fused_ln_linear import (
 )
 from lafs_cvpr2024_tpu_torch.ops.fused_mlp import (
     FusedLNMLP,
+    dropout_bits,
     dropout_mask,
     fused_ln_mlp_bwd_cuda,
     fused_ln_mlp_bwd_plain,
@@ -201,10 +233,20 @@ from lafs_cvpr2024_tpu_torch.ops.fused_mlp import (
     fused_mlp_bwd_plain,
     fused_mlp_fwd_cuda,
     fused_mlp_fwd_plain,
+    keep_threshold,
 )
 from lafs_cvpr2024_tpu_torch.ops.mixup import MixupConfig
+from lafs_cvpr2024_tpu_torch.ops.mlp_fusion import TILE as MLP10_TILE
+from lafs_cvpr2024_tpu_torch.ops.mlp_fusion import (
+    mlp_fusion,
+    mlp_fusion_cuda,
+    mlp_fusion_dense,
+    mlp_fusion_plain,
+    mlp_fusion_weights_from_jax,
+)
 from lafs_cvpr2024_tpu_torch.ops.patch_gather import patch_gather_plain
 from lafs_cvpr2024_tpu_torch.ops.patch_gather_cuda import patch_gather_cuda
+from lafs_cvpr2024_tpu_torch.ops.warp import decode_warp_batch
 from lafs_cvpr2024_tpu_torch.train.checkpoint import TrainingCheckpointer
 from lafs_cvpr2024_tpu_torch.train.simmim import (
     SimMIMConfig,
@@ -272,6 +314,10 @@ KERNELS = {
     "flash_attention_bwd_dq": dict(
         source="lafs_cvpr2024_tpu_torch/csrc/flash_attention_bwd.cu",
         replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:1146"),
+    # row 10: the TPU MLP microbenchmark's fused kernel
+    "mlp_fusion": dict(
+        source="lafs_cvpr2024_tpu_torch/csrc/mlp_fusion.cu",
+        replaces="benchmarks/bench_mlp_fusion.py:54"),
 }
 SERVE_KERNELS = ("patch_gather", "fused_ln_mlp")
 SSL_KERNELS = ("patch_gather", "fused_ln_mlp", "fused_ln_mlp_bwd")
@@ -315,6 +361,12 @@ SSL_FLASH_CONFIGS = {"kernel": ("kernel", "fused_ln", "flash"),
 SSL_FLASH_TIMED = 5                    # timed steps per configuration
 FIXTURE = os.path.join("tests", "data", "ssl_rec")  # 64 JPEGs, 112x112
 CLI_TIMEOUT_S = 300
+# row 10 (benchmarks/bench_mlp_fusion.py): main's default T, the row's T in
+# PERF.md and a ragged T; the microbenchmark's chained calls per variant
+MLP10_T = (22016, 22080, 300)
+MLP10_ITERS = 30
+IJB_MINI = os.path.join("tests", "data", "ijb_mini")
+EVAL_BATCH = 256                       # faces per timed eval batch
 # the card's peaks for the bounds: H100 SXM data sheet (dense bf16 tensor
 # cores; fp32 outside the tensor cores, TF32 off), HBM3 rate
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -1943,6 +1995,252 @@ def phase_cli(seed: int) -> dict:
     return dict(imgs_per_s=rates, losses=logged, seconds=both_s)
 
 
+# ---------------------------------- row 10 and the evaluation CLIs (19-20) --
+
+def mlp10_operands(dev, t: int, seed: int):
+    """x (t, 768) and the microbenchmark's weights (N(0, 1) · 0.02, the
+    JAX layout), bf16."""
+    rng = np.random.default_rng(seed + 19)
+    w1, w2 = mlp_fusion_weights_from_jax(
+        rng.standard_normal((768, 2048)) * 0.02,
+        rng.standard_normal((2048, 768)) * 0.02, dev)
+    x = np.random.default_rng(seed + t).standard_normal((t, 768))
+    return torch.from_numpy(x.astype(np.float32)).to(dev, torch.bfloat16), w1, w2
+
+
+def mlp10_bench(x, w1, w2) -> dict:
+    """The microbenchmark's ``main`` on the port: per rate, one call, then
+    ``MLP10_ITERS`` calls each fed the last one's output (``time_fn``);
+    ms per call by CUDA events."""
+    out = {}
+    for rate in (0.0, 0.1):
+        y = mlp_fusion(x, w1, w2, rate, DROP_SEED)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(MLP10_ITERS):
+            y = mlp_fusion(y, w1, w2, rate, DROP_SEED)
+        end.record()
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(y).all()), "row 10's chained output")
+        out[rate] = start.elapsed_time(end) / MLP10_ITERS
+    return out
+
+
+def mlp10_masks(dev, t: int):
+    """Both dropout masks of the kernel against the plain version's, bit
+    for bit: x = 1 and W1 = 1/16 make every hidden value GELU(48) = 48,
+    and a one-hot W2 routes hidden unit off + c to output column c, so
+    each output element is one hidden element, kept and scaled or dropped,
+    with no rounding between the two versions (the hidden mask is seen
+    wherever the output draw keeps; three offsets cover the 2,048 units).
+    Returns (equal, the kernel's hidden keep fraction where seen)."""
+    x = torch.ones(t, 768, device=dev, dtype=torch.bfloat16)
+    w1 = torch.full((768, 2048), 1 / 16, device=dev, dtype=torch.bfloat16)
+    cols = torch.arange(768, device=dev)
+    keep_y = dropout_bits(t, 768, DROP_SEED, 1, MLP10_TILE, dev) \
+        < keep_threshold(0.1)
+    equal, kept, seen = True, 0, 0
+    for off in (0, 768, 1280):
+        w2 = torch.zeros(2048, 768, device=dev, dtype=torch.bfloat16)
+        w2[cols + off, cols] = 1.0
+        got = mlp_fusion_cuda(x, w1, w2, rate=0.1, seed=DROP_SEED)
+        want = mlp_fusion_plain(x, w1, w2, rate=0.1, seed=DROP_SEED)
+        equal = equal and torch.equal(got, want)
+        kept += int((got != 0).sum())
+        seen += int(keep_y.sum())
+    return equal, kept / seen
+
+
+def phase_mlp_fusion(dev, seed: int) -> dict:
+    """Row 10: the microbenchmark's path (launches counted), then the
+    kernel against its plain version at each of ``MLP10_T``."""
+    t0 = time.perf_counter()
+    x, w1, w2 = mlp10_operands(dev, MLP10_T[0], seed)
+    _build.LAUNCHES.clear()
+    bench_ms = mlp10_bench(x, w1, w2)
+    launches = dict(_build.LAUNCHES)
+    require(launches.get("mlp_fusion", 0) == 2 * (1 + MLP10_ITERS),
+            f"row 10's path launched {launches}")
+    print(f"phase 19 mlp_fusion path: benchmarks/bench_mlp_fusion.py main at "
+          f"T={MLP10_T[0]}, {MLP10_ITERS} chained calls: pallas_nodrop "
+          f"{bench_ms[0.0]:.4f} ms, pallas_drop {bench_ms[0.1]:.4f} ms per "
+          f"call; launches {launches} ok", flush=True)
+    out = {"launches": launches, "bench_ms": bench_ms}
+    for t in MLP10_T:
+        x, w1, w2 = mlp10_operands(dev, t, seed)
+        res = {}
+        for rate in (0.0, 0.1):
+            kw = dict(rate=rate, seed=DROP_SEED)
+            got = mlp_fusion_cuda(x, w1, w2, **kw)
+            want = mlp_fusion_plain(x, w1, w2, **kw)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, want)
+            res[rate] = dict(
+                err=err, rel=rel, zeros=torch.equal(got == 0, want == 0),
+                keep=(got != 0).float().mean().item(),
+                finite=bool(torch.isfinite(got).all()),
+                ms=cuda_ms(lambda: mlp_fusion_cuda(x, w1, w2, **kw), iters=10),
+                plain_ms=cuda_ms(lambda: mlp_fusion_plain(x, w1, w2, **kw),
+                                 iters=3, warmup=1))
+        equal, keep_h = mlp10_masks(dev, t)
+        with torch.no_grad():
+            dense_ms = cuda_ms(lambda: mlp_fusion_dense(x, w1, w2), iters=10)
+        keep_y = res[0.1]["keep"]
+        ok = (all(r["rel"] <= 2e-2 and r["zeros"] and r["finite"]
+                  for r in res.values()) and equal
+              and abs(keep_h - 0.9) <= 0.002 and abs(keep_y - 0.9) <= 0.002)
+        b = bound(4 * t * 768 * 2048, nbytes(x, w1, w2, x))
+        print(f"phase 19 mlp_fusion T={t} bf16: rate 0 rel_err="
+              f"{res[0.0]['rel']:.3e}, rate 0.1 rel_err={res[0.1]['rel']:.3e}"
+              f" (tol 2e-2), output zeros as plain {res[0.1]['zeros']}, "
+              f"masks bit-identical {equal}, keep fraction hidden "
+              f"{keep_h:.5f} output {keep_y:.5f} (tol 0.9 +- 0.002); "
+              f"kernel_ms={res[0.0]['ms']:.4f} (rate 0.1 "
+              f"{res[0.1]['ms']:.4f}) plain_ms={res[0.0]['plain_ms']:.4f} "
+              f"(rate 0.1 {res[0.1]['plain_ms']:.4f}) dense_ms={dense_ms:.4f}"
+              f" bound_ms={b['bound_ms']:.4f} ({b['bound_by']}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        require(ok, f"the row-10 kernel disagrees at T={t}")
+        out[t] = dict(max_abs_err=max(r["err"] for r in res.values()),
+                      ms=res[0.0]["ms"], ms_drop=res[0.1]["ms"],
+                      plain_ms=res[0.0]["plain_ms"], library_ms=dense_ms, **b)
+    print(f"phase 19 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def eval_model(loaded, config: str, dev) -> PartFViT:
+    """A fresh copy on ``dev`` of the model the eval CLIs load from phase
+    5's ``.pth`` (``loaded``, on the CPU): the kernel configuration, or
+    the plain one (``gather``, ``dense``)."""
+    cfg = loaded.cfg if config == "kernel" else dataclasses.replace(
+        loaded.cfg, gather_impl="gather", mlp_impl="dense")
+    model = PartFViT(cfg)
+    model.load_state_dict(loaded.model.state_dict(), strict=True)
+    return model.eval().to(dev)
+
+
+def make_pairs_bin(path: str) -> None:
+    """A verification ``.bin`` of 32 pairs of the fixture's faces (8
+    identities of 8): even pairs within an identity, odd ones across two."""
+    ds = FaceRecordDataset(os.path.join(FIXTURE, "train.rec"))
+    jpegs, labels = ds.fetch_batch(range(64))
+    bins, issame = [], []
+    for k in range(32):
+        a, b = 2 * k, (2 * k + 1 if k % 2 == 0 else (2 * k + 9) % 64)
+        bins += [jpegs[a], jpegs[b]]
+        issame.append(bool(labels[a] == labels[b]))
+    with open(path, "wb") as f:
+        pickle.dump((bins, issame), f)
+
+
+def eval_cmds(pth: str, out: str) -> dict:
+    """The three eval CLIs at their defaults on the fixtures."""
+
+    def cli(name, *args):
+        return [sys.executable, "-u", "-m",
+                f"lafs_cvpr2024_tpu_torch.cli.{name}", *args]
+
+    return {
+        "extract": cli("extract_embeddings", "--checkpoint", pth, "--input",
+                       FIXTURE, "--output", os.path.join(out, "extract")),
+        "bin": cli("evaluate_bin", "--checkpoint", pth, "--eval-path", out,
+                   "--targets", "pairs", "--json",
+                   os.path.join(out, "bin.json")),
+        "ijb": cli("evaluate_ijb", "--model-checkpoint", pth, "--image-path",
+                   os.path.join(IJB_MINI, "loose_crop"), "--meta-path",
+                   os.path.join(IJB_MINI, "meta")),
+    }
+
+
+def cli_launches(text: str) -> dict:
+    lines = [x for x in text.splitlines() if x.startswith("[kernels] ")]
+    require(len(lines) == 1, "an eval CLI printed no launch counts")
+    return json.loads(lines[0].split("launches ", 1)[1])
+
+
+def phase_eval(dev, pth: str) -> dict:
+    """The evaluation path at full width: the three CLIs in subprocesses,
+    beside each other, while this process computes their references."""
+    out = os.path.join(WORK, "eval")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    make_pairs_bin(os.path.join(out, "pairs.bin"))
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, cmd in eval_cmds(pth, out).items()}
+    try:
+        loaded = load_eval_model(pth, device="cpu", log=lambda _: None)
+        images = fixture_batch(dev, 64)
+        plain = make_model_embed(eval_model(loaded, "plain", dev), "half",
+                                 torch.bfloat16)
+        e = plain(torch.cat([images, images.flip(2)])).cpu().numpy()
+        want = e[:64] + e[64:]  # flip fusion by addition, then L2 norm
+        want /= np.linalg.norm(want, axis=1, keepdims=True)
+        data, issame = load_bin(os.path.join(out, "pairs.bin"), device=dev)
+        val = perform_val(make_model_embed(eval_model(loaded, "kernel", dev),
+                                           "half", torch.float32),
+                          data, issame, device_scale=True)
+        names, lms, _ = load_image_list(os.path.join(IJB_MINI, "meta"), "IJBC")
+        ref = np.load(os.path.join(IJB_MINI, "aligned_ref.npz"))["aligned"]
+        jpegs = []
+        for name in names[: len(ref)]:
+            with open(os.path.join(IJB_MINI, "loose_crop", name), "rb") as f:
+                jpegs.append(f.read())
+        mats = np.stack([umeyama(lm, ARCFACE_SRC)[:2] for lm in lms[: len(ref)]])
+        warp_diff = level_diff(decode_warp_batch(jpegs, mats, dev), ref)
+        texts = {}
+        for k, proc in procs.items():
+            stdout, err = proc.communicate(timeout=CLI_TIMEOUT_S)
+            require(proc.returncode == 0, f"the {k} CLI failed "
+                    f"({proc.returncode}):\n{stdout[-2000:]}\n{err[-3000:]}")
+            texts[k] = stdout
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cli_s = time.perf_counter() - t0
+    launches = {k: cli_launches(t) for k, t in texts.items()}
+    got = np.load(os.path.join(out, "extract", "embeddings.npy"))
+    with open(os.path.join(out, "extract", "names.json")) as f:
+        names_ok = json.load(f) == [str(i) for i in range(64)]
+    cos = (got * want).sum(1)
+    with open(os.path.join(out, "bin.json")) as f:
+        acc = json.load(f)["pairs"]["accuracy"]
+    table = [float(x.split("TPR=")[1].rstrip("%"))
+             for x in texts["ijb"].splitlines() if "TPR=" in x]
+    # faces/s of both configurations, batches of 256 faces with their flips
+    batch = images.repeat(EVAL_BATCH // 64, 1, 1, 1)
+    both = torch.cat([batch, batch.flip(2)])
+    rates = {}
+    for config in ("kernel", "plain"):
+        embed = make_model_embed(eval_model(loaded, config, dev), "half",
+                                 torch.bfloat16)
+        rates[config] = EVAL_BATCH / cuda_ms(lambda: embed(both), iters=5,
+                                             warmup=2) * 1e3
+    ok = (got.shape == want.shape and got.shape[0] == 64 and names_ok and cos.min() >= 1 - 1e-3
+          and launches["extract"].get("patch_gather", 0) > 0
+          and launches["extract"].get("fused_ln_mlp", 0) > 0
+          and np.isfinite(acc) and acc == val.accuracy
+          and len(table) == 6 and np.isfinite(table).all()
+          and warp_diff[0] <= 1.0)
+    print(f"phase 20 eval CLIs at full width ({cli_s:.1f} s, side by side): "
+          f"extract_embeddings 64 records bf16 cosine vs plain configuration "
+          f"min {cos.min():.6f} (tol 1 - 1e-3), launches {launches['extract']}"
+          f"; evaluate_bin fp32 accuracy {acc:.5f} vs perform_val in process "
+          f"{val.accuracy:.5f}; evaluate_ijb TPR@FPR {table} (%), decode+warp"
+          f" vs numpy norm_crop of PIL mean/max {warp_diff[0]:.4f}/"
+          f"{warp_diff[1]} levels (tol mean 1); faces_per_s batch "
+          f"{EVAL_BATCH} flip on: kernel {rates['kernel']:.1f} plain "
+          f"{rates['plain']:.1f}; phase {time.perf_counter() - t0:.1f} s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, "the evaluation path failed its checks")
+    return dict(launches=launches["extract"], faces_per_s=rates)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2005,13 +2303,17 @@ def main(argv=None) -> int:
     ssl_flash = {"launches": ssl_flash["launches"]}
     del images
     phase_cli(args.seed)
+    mlp10 = phase_mlp_fusion(dev, args.seed)
+    evaluation = phase_eval(dev, os.path.join(WORK, "partfvit_b.pth"))
 
     # each kernel's numbers at its main-path shape in bf16: the gather at the
     # served batch, kernel 2 with dropout and u at the SSL global crops' T,
     # kernel 3 at rate 0.1 there, kernels 6 and 7 at one attention call of
     # the supervised step, kernels 4, 5, 8 and 9 at the SimMIM step's T
-    # (rate 0.1 for 4 and 5); launches counted on the last path that runs
-    # each kernel: the SimMIM steps, else the supervised ones
+    # (rate 0.1 for 4 and 5), row 10 at the row's T = 22,080 at rate 0 (its
+    # yardstick's rate); launches counted on the last path that runs each
+    # kernel: the SimMIM steps, else the supervised ones, else the SSL CLI
+    # step, else row 10's microbenchmark path
     flash_g = flash["global"]
     measured_flash = {
         name: dict(max_abs_err=max(flash_g["errs"][k][0] for k in keys),
@@ -2031,15 +2333,19 @@ def main(argv=None) -> int:
                 "fused_mlp_bwd": mlp_nol["bfloat16"]["bwd"],
                 "fused_ln_linear": ln_linear["bfloat16"]["fwd"],
                 "fused_ln_linear_bwd": ln_linear["bfloat16"]["bwd"],
-                **measured_flash}
+                **measured_flash,
+                "mlp_fusion": mlp10[22080]}
     paths = {"serve": served, "ssl": ssl_launches,
              "supervised": sup_launches, "simmim": sim["launches"],
-             "ssl_flash": ssl_flash["launches"]}
+             "ssl_flash": ssl_flash["launches"],
+             "mlp_fusion_bench": mlp10["launches"],
+             "eval": evaluation["launches"]}
     record = {"kernels": [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=(sim["launches"].get(name)
                        or sup_launches.get(name)
-                       or ssl_flash["launches"].get(name, 0)),
+                       or ssl_flash["launches"].get(name)
+                       or mlp10["launches"].get(name, 0)),
              launches_by_path={p: n.get(name, 0) for p, n in paths.items()},
              max_abs_err=res["max_abs_err"], ms=res["ms"],
              plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
@@ -2048,13 +2354,6 @@ def main(argv=None) -> int:
     ]}
     missing = [r["name"] for r in record["kernels"] if not r["launches"]]
     require(not missing, f"no path launched {missing}")
-    # the TPU kernel still to port, at the JAX package's shape: row 10's
-    # bias-free fused MLP microbenchmark (benchmarks/bench_mlp_fusion.py)
-    t10 = 22080
-    b10 = bound(4 * t10 * 768 * 2048, 2 * (2 * t10 * 768 + 2 * 768 * 2048))
-    print(f"bound of the kernel still to port: row 10 (T={t10}, 768 -> "
-          f"2048, bf16) {b10['bound_ms']:.4f} ms ({b10['bound_by']})",
-          flush=True)
     print(json.dumps(record))
     print(card())
     print(json.dumps({"ok": True, "device": {

@@ -85,6 +85,8 @@ _SIGNATURES = {
     # q, k, v, do, lse, di, dq, strides (15 int64), B, H, N, D, scale, stream
     "lafs_flash_attention_bwd_dq_bf16": (_P,) * 8 + (_I,) * 4 + (_F, _P),
     "lafs_flash_attention_bwd_dq_f32": (_P,) * 8 + (_I,) * 4 + (_F, _P),
+    # x, w1 (D, H), w2 (H, D), y, T, D, H, *_DROP, stream (row 10, bf16)
+    "lafs_mlp_fusion_bf16": (_P,) * 4 + (_I,) * 3 + _DROP + (_P,),
     "lafs_cuda_error_string": (_I,),
 }
 

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..eval.loading import (
+    EVAL_DTYPES,
     add_arch_flags,
     add_input_scale_flag,
     arch_overrides_from_args,
@@ -43,7 +44,6 @@ from ..ops.augment_device import scale_uint8
 MAGIC = 0x4C414653  # "LAFS": raw uint8 pixels
 MAGIC_JPEG = 0x4C414A50  # "LAJP": JPEG crops + 5-pt landmarks (not ported)
 ERR = 0xFFFFFFFF
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def get_args(argv=None):
@@ -53,8 +53,8 @@ def get_args(argv=None):
     p.add_argument("--batch-size", type=int, default=256,
                    help="fixed batch shape; requests are padded up and "
                         "chunked down to it")
-    p.add_argument("--eval-dtype", default="bfloat16", choices=list(_DTYPES),
-                   help="forward compute dtype")
+    p.add_argument("--eval-dtype", default="bfloat16",
+                   choices=list(EVAL_DTYPES), help="forward compute dtype")
     p.add_argument("--no-flip", dest="flip", action="store_false",
                    default=True)
     p.add_argument("--max-requests", type=int, default=0,
@@ -93,7 +93,7 @@ class EmbeddingServer:
                                  device=self.device, log=log)
         args.input_scale = resolve_input_scale(args.input_scale, loaded.family,
                                                log=log)
-        self.dtype = _DTYPES[args.eval_dtype]
+        self.dtype = EVAL_DTYPES[args.eval_dtype]
         # Every float tensor of the model — BatchNorm running stats included —
         # is cast to the eval dtype, as the JAX server casts every float leaf
         # (serve_embeddings.py:118-120). In bf16 the landmark min-max rescale

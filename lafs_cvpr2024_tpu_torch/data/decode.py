@@ -81,6 +81,36 @@ def jpeg_size(data: bytes):
     return h.value, w.value
 
 
+def jpeg_dims(data: bytes, device) -> tuple:
+    """(height, width) of a JPEG from its header, read by the decoder of
+    ``device`` (nvJPEG on a CUDA device, PIL on the CPU). Bytes that do not
+    start with a JPEG's SOI marker raise, on either device (nvJPEG decodes
+    JPEG alone)."""
+    if bytes(data[:2]) != b"\xff\xd8":
+        raise ValueError("not a JPEG (no SOI marker): the port decodes JPEG "
+                         "only (ROADMAP.md §3)")
+    if torch.device(device).type == "cuda":
+        return jpeg_size(data)
+    import io
+
+    from PIL import Image
+
+    w, h = Image.open(io.BytesIO(data)).size
+    return h, w
+
+
+def read_jpeg(path: str, device):
+    """A JPEG file's bytes and (height, width), its header read by the
+    decoder of ``device``; a file that is not a JPEG the decoder reads
+    raises with its path."""
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        return data, jpeg_dims(data, device)
+    except (RuntimeError, ValueError, OSError) as e:
+        raise ValueError(f"{path}: not decodable ({e})") from e
+
+
 def decode_batch_cuda(jpegs: Sequence[bytes], device) -> torch.Tensor:
     """nvJPEG decode of equally sized JPEGs into a (B, H, W, 3) uint8 RGB
     tensor on ``device``, on its current stream."""

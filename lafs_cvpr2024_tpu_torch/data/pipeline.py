@@ -60,19 +60,28 @@ class EpochSampler:
 
 class Prefetcher:
     """Batches of one epoch as ``(images, labels)``: (B, H, W, 3) uint8 on
-    ``device`` and float32 numpy labels, decoded ``depth`` batches ahead.
+    ``device`` and float32 numpy labels, decoded ``depth`` (≥ 1) batches
+    ahead.
 
     On a CUDA device the reading thread decodes on its own stream and
     records an event; the consumer's current stream waits on it, and the
     tensor is marked as used there so the allocator cannot hand its memory
-    out early. On the CPU (tests) the thread decodes with PIL."""
+    out early. On the CPU (tests) the thread decodes with PIL.
+
+    ``decode(payload, extra)`` turns what ``dataset.fetch_batch`` returned
+    into the images, on the reading thread's stream (default: the JPEGs by
+    ``decode_batch``); ``extra`` is handed out in place of the labels."""
 
     def __init__(self, dataset, sampler: EpochSampler, device,
-                 depth: int = 2):
+                 depth: int = 2, decode=None):
+        if depth < 1:
+            raise ValueError(f"Prefetcher: depth must be >= 1, got {depth}")
         self.dataset = dataset
         self.sampler = sampler
         self.device = torch.device(device)
         self.depth = depth
+        self.decode = decode or (lambda jpegs, _: decode_batch(
+            jpegs, self.device, self.dataset.bgr))
 
     def epoch(self, epoch: int, start_step: int = 0) -> Iterator:
         """``start_step`` skips the first batches before any read: an exact
@@ -96,13 +105,11 @@ class Prefetcher:
                     event = None
                     if cuda:
                         with torch.cuda.stream(side):
-                            images = decode_batch(jpegs, self.device,
-                                                  self.dataset.bgr)
+                            images = self.decode(jpegs, labels)
                             event = torch.cuda.Event()
                             event.record(side)
                     else:
-                        images = decode_batch(jpegs, self.device,
-                                              self.dataset.bgr)
+                        images = self.decode(jpegs, labels)
                     q.put((images, labels, event))
                 q.put(done)
             except BaseException as e:  # surfaced at the consumer
@@ -131,3 +138,11 @@ class Prefetcher:
                 except queue.Empty:
                     pass
             thread.join()
+
+
+def serial(dataset, n: int, batch_size: int, decode) -> Iterator:
+    """The ``Prefetcher``'s ``(images, extra)`` batches over samples
+    ``0..n-1`` in order, fetched and decoded in turn (no read-ahead)."""
+    for s in range(0, n, batch_size):
+        payload, extra = dataset.fetch_batch(range(s, min(s + batch_size, n)))
+        yield decode(payload, extra), extra

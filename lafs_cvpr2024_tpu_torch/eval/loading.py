@@ -11,6 +11,7 @@ queued in ROADMAP.md.
 
 from __future__ import annotations
 
+import json
 import math
 import re
 from dataclasses import dataclass
@@ -18,9 +19,10 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from .. import _build
 from ..models.mobilenet import LARGE_SETTING, SMALL_SETTING
 from ..models.partfvit import PartFViT, PartFViTConfig
-from ..ops.augment_device import INPUT_SCALES
+from ..ops.augment_device import INPUT_SCALES, scale_uint8
 from ..train.checkpoint import strip_prefixes
 
 __all__ = [
@@ -30,8 +32,14 @@ __all__ = [
     "infer_partfvit_config",
     "load_eval_model",
     "LoadedEvalModel",
+    "make_model_embed",
+    "print_launches",
     "resolve_input_scale",
+    "EVAL_DTYPES",
 ]
+
+#: the ``--eval-dtype`` choices of the eval and serving CLIs
+EVAL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # PartFViTConfig fields a CLI may force explicitly (as in the JAX package)
 _OVERRIDABLE = (
@@ -241,3 +249,25 @@ def load_eval_model(checkpoint: str,
         f"mlp_dim={cfg.mlp_dim}, num_patches={cfg.num_patches}, "
         f"stn_mode={cfg.stn_mode}, with_land={cfg.with_land}")
     return LoadedEvalModel(model=model, cfg=cfg, family=family)
+
+
+def make_model_embed(model, input_scale: str, dtype: torch.dtype):
+    """``embed(uint8 (B, S, S, 3) batch) -> fp32 (B, D)`` on the model's
+    device, for the eval CLIs: the batch is scaled there and the model runs
+    in ``dtype``. ``model`` is cast in place, every float tensor of it
+    (BatchNorm statistics included), as the JAX CLIs cast every float
+    leaf."""
+    model = model.to(dtype)
+
+    @torch.inference_mode()
+    def embed(batch):
+        return model(scale_uint8(batch, input_scale).to(dtype)).float()
+
+    return embed
+
+
+def print_launches(device) -> None:
+    """On a CUDA device, one line with the kernel launches of this process
+    (``_build.LAUNCHES``, as JSON): which kernels the run went through."""
+    if torch.device(device).type == "cuda":
+        print(f"[kernels] launches {json.dumps(dict(_build.LAUNCHES))}")

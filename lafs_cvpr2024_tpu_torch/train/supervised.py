@@ -37,6 +37,7 @@ PartialFC, ZeRO-1, landmark distillation, the fused device augmentation,
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -232,3 +233,38 @@ def make_train_step(cfg: SupervisedConfig) -> Callable:
     step.loss_and_grads = loss_and_grads
     step.update = update
     return step
+
+
+def make_embed_fn(cfg: SupervisedConfig, input_scale: Optional[str] = None,
+                  compute_dtype: Optional[torch.dtype] = None) -> Callable:
+    """Eval-time embedding function for ``perform_val`` and IJB sweeps
+    (``supervised.py:828-876``): ``embed(variables, images) -> (B, dim)``
+    fp32, where ``variables`` is ``{**state.params, **state.batch_stats}``
+    (the margin head's ``loss.*`` leaves are ignored).
+
+    ``input_scale`` ('half' = x/255−0.5, 'unit' = x/255·2−1): ``images``
+    are RAW uint8 on the device and are scaled there (pair with
+    ``perform_val(..., device_scale=True)``). ``compute_dtype`` (e.g.
+    ``torch.bfloat16``): the float leaves and the images are cast for the
+    forward; ``None`` keeps fp32. One GPU, so no batch sharding.
+
+    The model keeps ``cfg.model``'s impls: the port's eval runs the kernel
+    configuration (gather kernel, ``fused_ln``), where the JAX function
+    forces the dense MLP (a TPU measurement); both compute the same
+    function on the same weights."""
+    mcfg = dataclasses.replace(cfg.model, loss_type="None", num_classes=0)
+    with torch.device("meta"):
+        model = PartFViT(mcfg).eval()
+
+    @torch.no_grad()
+    def embed(variables, images):
+        if input_scale is not None:
+            images = scale_uint8(images, input_scale)
+        tree = {n: v for n, v in variables.items() if not n.startswith("loss.")}
+        if compute_dtype is not None:
+            tree = {n: v.to(compute_dtype) if v.is_floating_point() else v
+                    for n, v in tree.items()}
+            images = images.to(compute_dtype)
+        return functional_call(model, tree, (images,), strict=True).float()
+
+    return embed

@@ -18,7 +18,15 @@ versions hash the same keys. The fused attention forward and backward
 agree to 1e-5 relative in fp32 and 2e-2 in bf16 (fp32 logits and softmax in
 both; the products accumulate in another order, and bf16 A and dS may
 round one ulp apart). So do the flash attention forward and its two
-backward kernels (11a-c) at any length N, the logsumexp within 1e-5.
+backward kernels (11a-c) at any length N, the logsumexp within 1e-5. The
+bias-free fused MLP of row 10 agrees to 2e-2 in bf16 (its only dtype) at a
+ragged T and at the microbenchmark's, and where its arithmetic is exact
+(one-hot W2, a constant hidden layer) its output equals the plain
+version's bit for bit at rate 0.1, which holds both dropout masks. The
+batched face warp on the card equals its run on the CPU (the numpy warp's
+arithmetic, in float64), and the card's decode and warp of the mini IJB
+fixture lie within a mean of 1 level of the numpy ``norm_crop`` of PIL's
+decode.
 """
 
 import numpy as np
@@ -68,6 +76,12 @@ from lafs_cvpr2024_tpu_torch.ops.fused_mlp import (
     fused_mlp_bwd_plain,
     fused_mlp_fwd_cuda,
     fused_mlp_fwd_plain,
+)
+from lafs_cvpr2024_tpu_torch.ops.mlp_fusion import (
+    mlp_fusion,
+    mlp_fusion_cuda,
+    mlp_fusion_plain,
+    mlp_fusion_weights_from_jax,
 )
 from lafs_cvpr2024_tpu_torch.ops.patch_gather import (
     patch_gather,
@@ -645,3 +659,101 @@ def test_prefetcher_batches_under_load_match_plain_decode(cuda):
             busy = busy @ busy
             busy = busy / busy.norm()
             assert torch.equal(imgs, ref[idx[16 * it:16 * it + 16]])
+
+
+# ------------------------------------- row 10: the bias-free fused MLP --
+
+def _mlp_fusion_operands(cuda, t, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((t, 768)).astype(np.float32))
+    w1, w2 = mlp_fusion_weights_from_jax(
+        rng.standard_normal((768, 2048)) * 0.02,
+        rng.standard_normal((2048, 768)) * 0.02, cuda)
+    return x.to(cuda, torch.bfloat16), w1, w2
+
+
+@pytest.mark.parametrize("t", [300, 22016])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_mlp_fusion_kernel_matches_plain(cuda, t, rate):
+    x, w1, w2 = _mlp_fusion_operands(cuda, t, t)
+    before = _build.LAUNCHES["mlp_fusion"]
+    got = mlp_fusion(x, w1, w2, rate, 77)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mlp_fusion"] == before + 1
+    want = mlp_fusion_plain(x, w1, w2, rate=rate, seed=77)
+    assert got.dtype == torch.bfloat16 and got.shape == (t, 768)
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= 2e-2
+    # the output draw: zeros where the plain version's mask drops
+    assert torch.equal(got == 0, want == 0)
+    if rate:
+        assert abs((got != 0).float().mean().item() - 0.9) <= 0.01
+
+
+def test_mlp_fusion_masks_are_the_plain_versions_bit_for_bit(cuda):
+    """x = 1 and W1 = 1/16 make every hidden pre-activation 48 (GELU(48) =
+    48 in fp32); a one-hot W2 routes hidden unit off + c to output column
+    c. Each output element is then one hidden element, dropped or scaled,
+    with no rounding between the two versions: the outputs are equal bit
+    for bit iff the hidden and output masks agree (the hidden mask wherever
+    the output draw keeps); three offsets cover the 2048 hidden units."""
+    t = 300
+    x = torch.ones(t, 768, device=cuda, dtype=torch.bfloat16)
+    w1 = torch.full((768, 2048), 1 / 16, device=cuda, dtype=torch.bfloat16)
+    for off in (0, 768, 1280):
+        w2 = torch.zeros(2048, 768, device=cuda, dtype=torch.bfloat16)
+        cols = torch.arange(768, device=cuda)
+        w2[cols + off, cols] = 1.0
+        got = mlp_fusion_cuda(x, w1, w2, rate=0.1, seed=5)
+        want = mlp_fusion_plain(x, w1, w2, rate=0.1, seed=5)
+        assert torch.equal(got, want)
+        assert 0.75 < (got != 0).float().mean().item() < 0.87  # 0.9 · 0.9
+
+
+def test_mlp_fusion_kernel_refuses_what_it_does_not_take(cuda):
+    x, w1, w2 = _mlp_fusion_operands(cuda, 8, 0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        mlp_fusion_cuda(x.float(), w1, w2)
+    with pytest.raises(ValueError, match="do not form an MLP"):
+        mlp_fusion_cuda(x, w1.t(), w2)
+
+
+# ----------------------------------------------- the card's face warp --
+
+def test_warp_affine_batch_on_card_equals_cpu(cuda):
+    from lafs_cvpr2024_tpu_torch.ops.warp import warp_affine_batch
+
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.integers(0, 256, (5, 150, 130, 3),
+                                         dtype=np.uint8))
+    mats = np.zeros((5, 2, 3))
+    for i in range(4):
+        a, s = rng.uniform(-0.4, 0.4), rng.uniform(0.5, 1.5)
+        mats[i, :, :2] = s * np.array([[np.cos(a), -np.sin(a)],
+                                       [np.sin(a), np.cos(a)]])
+        mats[i, :, 2] = rng.uniform(-40, 10, 2)
+    mats[4] = np.nan
+    got = warp_affine_batch(imgs.to(cuda), mats, 112).cpu()
+    want = warp_affine_batch(imgs, mats, 112)
+    assert (got != want).float().mean().item() == 0.0
+    assert not got[4].any() and got[:4].any()
+
+
+def test_decode_warp_batch_on_card_within_a_level_of_norm_crop(cuda):
+    from pathlib import Path
+
+    from lafs_cvpr2024_tpu_torch.eval.ijb import ARCFACE_SRC, umeyama
+    from lafs_cvpr2024_tpu_torch.ops.warp import decode_warp_batch
+
+    root = Path(__file__).resolve().parent / "data" / "ijb_mini"
+    meta = root / "meta" / "ijbc_name_5pts_score.txt"
+    names = [line.split()[0] for line in meta.read_text().splitlines()]
+    lms = np.loadtxt(meta, usecols=range(1, 11),
+                     dtype=np.float32).reshape(-1, 5, 2)
+    ref = np.load(root / "aligned_ref.npz")["aligned"]
+    n = len(ref)
+    jpegs = [(root / "loose_crop" / name).read_bytes() for name in names[:n]]
+    mats = np.stack([umeyama(lm, ARCFACE_SRC)[:2] for lm in lms[:n]])
+    got = decode_warp_batch(jpegs, mats, cuda).cpu().numpy()
+    diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+    assert got.shape == ref.shape and diff.mean() <= 1.0

@@ -36,7 +36,9 @@ def test_package_imports_without_jax():
         "ops.patchify", "train.simmim", "train.device", "cli.train_ssl",
         "data.recordio", "data.dataset", "data.decode", "data.pipeline",
         "ops.flash_attention", "ops.schedules", "utils.config",
-        "utils.logging")} <= visited
+        "utils.logging", "ops.mlp_fusion", "ops.warp", "eval.verification",
+        "eval.ijb", "cli.evaluate_bin", "cli.extract_embeddings",
+        "cli.evaluate_ijb")} <= visited
 
 
 def test_simmim_slice_and_chip_smoke_import_without_jax():
@@ -80,3 +82,30 @@ def test_ssl_cli_slice_imports_without_jax_or_pil():
     for name in ("flash_attention", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq"):
         assert f"'{name}'" in proc.stdout
+
+
+def test_eval_slice_imports_without_jax_or_pil():
+    """The evaluation slice (the three eval CLIs, verification, the IJB
+    protocol, the card's warp, row 10's op) and ``chip_smoke.py`` import
+    with jax, the JAX package and PIL blocked, and the CLIs parse their
+    command lines with the card as the default device."""
+    root = Path(__file__).resolve().parent.parent
+    script = _SCRIPT.split("import lafs_cvpr2024_tpu_torch as pkg")[0] + (
+        "import chip_smoke\n"
+        "from lafs_cvpr2024_tpu_torch.cli import evaluate_bin, evaluate_ijb\n"
+        "from lafs_cvpr2024_tpu_torch.cli import extract_embeddings\n"
+        "from lafs_cvpr2024_tpu_torch.eval import ijb, verification\n"
+        "from lafs_cvpr2024_tpu_torch.ops import mlp_fusion, warp\n"
+        "from lafs_cvpr2024_tpu_torch.train.supervised import make_embed_fn\n"
+        "for a in (evaluate_bin.get_args(['--checkpoint', 'm.pth',\n"
+        "                                 '--eval-path', 'v']),\n"
+        "          extract_embeddings.get_args(['--checkpoint', 'm.pth',\n"
+        "              '--input', 'i', '--output', 'o']),\n"
+        "          evaluate_ijb.get_args(['--model-checkpoint', 'm.pth',\n"
+        "              '--image-path', 'i', '--meta-path', 'm'])):\n"
+        "    assert a.device == 'cuda'\n"
+        "print(sorted(chip_smoke.KERNELS))\n")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "'mlp_fusion'" in proc.stdout
