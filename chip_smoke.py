@@ -12,7 +12,9 @@ pretraining step, the SSL pretraining CLI on JPEG records, the TPU MLP
 microbenchmark's fused kernel (row 10) and the evaluation CLIs. Phases,
 one line each:
 
-1. the device (and ``nvidia-smi``'s name and power limit);
+1. the device (and ``nvidia-smi``'s name and power limit), the kernels'
+   build and ptxas's registers and spills of the two Hopper kernels (11a
+   bf16 and row 10; a spill fails the run);
 2. kernel 1 (patch gather) against its plain PyTorch version at
    (128, 112, 112, 3) images and 196 landmarks, including landmarks at and
    beyond every edge, in fp32 and bf16;
@@ -89,7 +91,8 @@ one line each:
     one step of the grid variant (``use_landmarks=False``);
 15. kernels 11a-c (flash attention forward, dK/dV, dQ) against their plain
     versions at the SSL step's flash calls, globals (64, 11, 197, 64) and
-    locals (256, 11, 37, 64), and at N = 128, 130 and 1,024, on strided
+    locals (256, 11, 37, 64), and at N = 17, 49, 65 (11a's tail widths
+    and its single-block path), 128, 130 and 1,024, on strided
     ``to_qkv`` views, bf16 (2e-2) and fp32 (1e-5), the fp32 logsumexp to
     1e-5 and ``scaled_dot_product_attention``'s output to the same bars;
     kernel, plain, SDPA forward and autograd-backward and bound ms at the
@@ -119,12 +122,13 @@ one line each:
     (``ops/mlp_fusion.py``, ``csrc/mlp_fusion.cu``): its path, the
     microbenchmark's ``main`` (T = 22,016, 768 → 2048, bf16: 1 + 30
     chained calls at rate 0, then at rate 0.1), timed and counted; then at
-    T = 22,016, 22,080 (the row's shape) and a ragged 300, against the
-    plain version at rates 0 and 0.1 (≤ 2e-2 relative, output zeros where
-    the plain version's are), both dropout masks bit-identical (a one-hot
-    W2 on a constant hidden layer makes each output one hidden element,
-    exactly: kernel and plain outputs equal bit for bit) with each draw's
-    keep fraction within 0.9 ± 0.002; kernel, plain and
+    T = 22,016, 22,080 (the row's shape), a ragged 300 and the cluster's
+    and the hash tile's edges 1, 65 and 257, against the plain version at
+    rates 0 and 0.1 (≤ 2e-2 relative, output zeros where the plain
+    version's are), both dropout masks bit-identical (a one-hot W2 on a
+    constant hidden layer makes each output one hidden element, exactly:
+    kernel and plain outputs equal bit for bit) with each draw's keep
+    fraction within 0.9 ± 0.002 from T = 300; kernel, plain and
     ``mlp_fusion_dense`` (the ``xla_mlp`` yardstick) ms;
 20. evaluation at full width from phase 5's ``.pth``, the three CLIs in
     subprocesses beside each other: ``cli/extract_embeddings.py`` on the
@@ -346,10 +350,13 @@ SIM_CONFIGS = {"kernel": ("kernel", "fused", "lnqkv"),
 SIM_ARGS = dict(lr=1e-4, wd=0.05)      # cli/train_simmim.py's defaults
 QKV_O = 3 * 11 * 64                    # to_qkv width of Part-fViT-B: 2,112
 # the SSL CLI slice: (B, H, N) of the step's flash calls (2 globals of 197
-# tokens, 8 locals of 37), ragged and long N, and the expected launches
+# tokens, 8 locals of 37), 11a's tail widths (17, 49: one key block cut to
+# 32 and 64; 65: a whole block and a tail of 16), ragged and long N, and
+# the expected launches
 FLASH_SHAPES = {"global": (2 * SSL_BATCH, 11, 197),
                 "local": (8 * SSL_BATCH, 11, 37)}
-FLASH_EXTRA = ((8, 11, 128), (8, 11, 130), (4, 11, 1024))
+FLASH_EXTRA = ((8, 11, 17), (8, 11, 49), (8, 11, 65), (8, 11, 128),
+               (8, 11, 130), (4, 11, 1024))
 FLASH_KERNELS = ("flash_attention", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq")
 # per step: the teacher's 12 layers on the globals, the student's 12 on
@@ -362,9 +369,11 @@ SSL_FLASH_TIMED = 5                    # timed steps per configuration
 FIXTURE = os.path.join("tests", "data", "ssl_rec")  # 64 JPEGs, 112x112
 CLI_TIMEOUT_S = 300
 # row 10 (benchmarks/bench_mlp_fusion.py): main's default T, the row's T in
-# PERF.md and a ragged T; the microbenchmark's chained calls per variant
-MLP10_T = (22016, 22080, 300)
+# PERF.md, a ragged T and the edges of the 64-row cluster tile and the
+# 256-row hash tile; the microbenchmark's chained calls per variant
+MLP10_T = (22016, 22080, 300, 1, 65, 257)
 MLP10_ITERS = 30
+MLP10_KEEP_T = 300                     # least T whose keep fractions are held
 IJB_MINI = os.path.join("tests", "data", "ijb_mini")
 EVAL_BATCH = 256                       # faces per timed eval batch
 # the card's peaks for the bounds: H100 SXM data sheet (dense bf16 tensor
@@ -402,6 +411,37 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# the kernels written for Hopper (TMA, wgmma): ptxas must report no spill
+SM90_KERNELS = {"flash_attention (11a, bf16)": "flash_fwd_bf16",
+                "mlp_fusion (row 10)": "mlp_fusion_bf16_kernel"}
+
+
+def ptxas_report() -> dict:
+    """Registers, static shared memory and spill bytes of every instance of
+    the ``SM90_KERNELS``, from ``nvcc -Xptxas -v``'s report of the build."""
+    out, cur = {}, None
+    for line in _build.ptxas_log().read_text().splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            cur = next((k for k, v in SM90_KERNELS.items() if v in mangled),
+                       None)
+            if cur and "ILb" in mangled:  # the DROP template argument
+                cur += " dropout" if "ILb1E" in mangled else " rate 0"
+            if cur:
+                out[cur] = {}
+        elif cur and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out[cur].update(stack=nums[0], spill_stores=nums[1],
+                            spill_loads=nums[2])
+        elif cur and "Used" in line and "registers" in line:
+            words = line.replace(",", " ").split()
+            out[cur]["registers"] = int(words[words.index("registers") - 1])
+            out[cur]["smem"] = (int(words[words.index("smem") - 2])
+                                if "smem" in words else 0)
+    return out
 
 
 def card() -> str:
@@ -1660,7 +1700,7 @@ def flash_bounds(q, k, v, do, o, lse, di, dtype) -> dict:
 
 def phase_flash(dev, seed: int) -> dict:
     """Kernels 11a-c against their plain versions at the SSL step's global
-    and local shapes and at N = 128, 130, 1024, on strided ``to_qkv``
+    and local shapes and at ``FLASH_EXTRA``'s N, on strided ``to_qkv``
     views, bf16 and fp32; SDPA's output held to the same bar; kernel,
     plain, SDPA and bound ms at the step's two shapes in bf16."""
     out = {}
@@ -2088,15 +2128,19 @@ def phase_mlp_fusion(dev, seed: int) -> dict:
         with torch.no_grad():
             dense_ms = cuda_ms(lambda: mlp_fusion_dense(x, w1, w2), iters=10)
         keep_y = res[0.1]["keep"]
+        # the keep fractions' bar needs enough draws: 0.002 is 3 sigma at
+        # T = 300 (230,400 outputs), 0.011 is one at T = 1
+        keep_ok = t < MLP10_KEEP_T or (abs(keep_h - 0.9) <= 0.002
+                                       and abs(keep_y - 0.9) <= 0.002)
         ok = (all(r["rel"] <= 2e-2 and r["zeros"] and r["finite"]
-                  for r in res.values()) and equal
-              and abs(keep_h - 0.9) <= 0.002 and abs(keep_y - 0.9) <= 0.002)
+                  for r in res.values()) and equal and keep_ok)
         b = bound(4 * t * 768 * 2048, nbytes(x, w1, w2, x))
         print(f"phase 19 mlp_fusion T={t} bf16: rate 0 rel_err="
               f"{res[0.0]['rel']:.3e}, rate 0.1 rel_err={res[0.1]['rel']:.3e}"
               f" (tol 2e-2), output zeros as plain {res[0.1]['zeros']}, "
               f"masks bit-identical {equal}, keep fraction hidden "
-              f"{keep_h:.5f} output {keep_y:.5f} (tol 0.9 +- 0.002); "
+              f"{keep_h:.5f} output {keep_y:.5f} (tol 0.9 +- 0.002 at T >= "
+              f"{MLP10_KEEP_T}); "
               f"kernel_ms={res[0.0]['ms']:.4f} (rate 0.1 "
               f"{res[0.1]['ms']:.4f}) plain_ms={res[0.0]['plain_ms']:.4f} "
               f"(rate 0.1 {res[0.1]['plain_ms']:.4f}) dense_ms={dense_ms:.4f}"
@@ -2263,6 +2307,15 @@ def main(argv=None) -> int:
     _build.library()
     print(f"phase 1 kernels built/loaded in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    ptxas = ptxas_report()
+    spills = {k: v for k, v in ptxas.items()
+              if v.get("spill_stores", 1) or v.get("spill_loads", 1)}
+    ok = (not spills and all(any(name in k for k in ptxas)
+                             for name in SM90_KERNELS))
+    print(f"phase 1 ptxas (registers, static smem bytes, spill store/load "
+          f"bytes) of the Hopper kernels: {json.dumps(ptxas)} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, f"a Hopper kernel spills or is missing: {ptxas}")
 
     gather = phase_gather(dev, args.seed)
     phase_mlp(dev, args.seed)

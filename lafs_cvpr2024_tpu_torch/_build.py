@@ -148,14 +148,23 @@ def _compile(sources, out: Path) -> None:
     os.replace(tmp, out)  # atomic: a concurrent build loses nothing
 
 
+def _library_path() -> Path:
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    return BUILD_DIR / f"liblafs_kernels-{_digest(sources)}.so"
+
+
+def ptxas_log() -> Path:
+    """``nvcc -Xptxas -v``'s report (registers, shared memory and spills of
+    every kernel) of the library that :func:`library` builds."""
+    return BUILD_DIR / f"{_library_path().stem}.ptxas.txt"
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The built kernel library (built on the first call of a process)."""
-    sources = sorted(CSRC.glob("*.cu"))
-    headers = sorted(CSRC.glob("*.cuh"))
-    out = BUILD_DIR / f"liblafs_kernels-{_digest(sources + headers)}.so"
+    out = _library_path()
     if not out.exists():
-        _compile(sources, out)
+        _compile(sorted(CSRC.glob("*.cu")), out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -171,8 +180,23 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def stream_ptr(tensor) -> int:
-    """The raw handle of PyTorch's current stream on ``tensor``'s device."""
+def device_guard(tensor):
+    """``torch.cuda.device(tensor.device)``, or no context at all when that
+    device is current already (the usual case): entering the context takes
+    more host time than the launch of a small kernel."""
+    import contextlib
+
     import torch
 
-    return torch.cuda.current_stream(tensor.device).cuda_stream
+    if tensor.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(tensor.device)
+
+
+def stream_ptr(tensor) -> int:
+    """The raw handle of PyTorch's current stream on ``tensor``'s device
+    (the binding under ``torch.cuda.current_stream(device).cuda_stream``,
+    without building a Stream object on every launch)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(tensor.device.index)

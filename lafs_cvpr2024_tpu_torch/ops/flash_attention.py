@@ -121,7 +121,7 @@ def flash_attention_fwd_cuda(q, k, v, scale: float):
     lse = torch.empty((b, h, n), device=q.device, dtype=torch.float32)
     strides = _strides(q, k, v, o)
     fn = _fn(_build.library(), "lafs_flash_attention", q.dtype)
-    with torch.cuda.device(q.device):
+    with _build.device_guard(q):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), ctypes.addressof(strides), b, h, n, d,
                  float(scale), _build.stream_ptr(q))
@@ -142,7 +142,7 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, di, scale: float):
     dk, dv = _heads_view(q), _heads_view(q)
     strides = _strides(q, k, v, do, dk, dv)
     fn = _fn(_build.library(), "lafs_flash_attention_bwd_dkv", q.dtype)
-    with torch.cuda.device(q.device):
+    with _build.device_guard(q):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  ctypes.addressof(strides), b, h, n, d, float(scale),
@@ -164,7 +164,7 @@ def flash_attention_bwd_dq_cuda(q, k, v, do, lse, di, scale: float):
     dq = _heads_view(q)
     strides = _strides(q, k, v, do, dq)
     fn = _fn(_build.library(), "lafs_flash_attention_bwd_dq", q.dtype)
-    with torch.cuda.device(q.device):
+    with _build.device_guard(q):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
                  ctypes.addressof(strides), b, h, n, d, float(scale),

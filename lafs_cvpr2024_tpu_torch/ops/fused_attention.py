@@ -84,7 +84,8 @@ def _operand(t: torch.Tensor) -> torch.Tensor:
 def _heads_view(like: torch.Tensor) -> torch.Tensor:
     """An uninitialised (B, H, S, D) result stored as (B, S, H, D)."""
     b, h, s, d = like.shape
-    return like.new_empty((b, s, h, d)).transpose(1, 2)
+    return torch.empty_strided((b, h, s, d), (s * h * d, d, h * d, 1),
+                               dtype=like.dtype, device=like.device)
 
 
 def _strides(*ts) -> ctypes.Array:
@@ -123,7 +124,7 @@ def fused_attention_cuda(q, k, v, scale: float) -> torch.Tensor:
     lib = _build.library()
     fn = (lib.lafs_fused_attention_bf16 if q.dtype == torch.bfloat16
           else lib.lafs_fused_attention_f32)
-    with torch.cuda.device(q.device):
+    with _build.device_guard(q):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  ctypes.addressof(strides), b, h, s, d, float(scale),
                  _build.stream_ptr(q))
@@ -145,7 +146,7 @@ def fused_attention_bwd_cuda(q, k, v, do, scale: float):
     lib = _build.library()
     fn = (lib.lafs_fused_attention_bwd_bf16 if q.dtype == torch.bfloat16
           else lib.lafs_fused_attention_bwd_f32)
-    with torch.cuda.device(q.device):
+    with _build.device_guard(q):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
                  ctypes.addressof(strides), b, h, s, d, float(scale),

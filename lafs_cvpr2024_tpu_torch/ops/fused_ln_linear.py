@@ -94,7 +94,7 @@ def fused_ln_linear_fwd_cuda(x, g, bt, w, *, eps: float = 1e-5):
     lib = _build.library()
     fn = (lib.lafs_fused_ln_linear_bf16 if x.dtype == torch.bfloat16
           else lib.lafs_fused_ln_linear_f32)
-    with torch.cuda.device(x.device):
+    with _build.device_guard(x):
         err = fn(x.data_ptr(), g.data_ptr(), bt.data_ptr(), w.data_ptr(),
                  y.data_ptr(), t, d, o, float(eps), _build.stream_ptr(x))
     _build.check(err, "fused_ln_linear kernel")
@@ -117,7 +117,7 @@ def fused_ln_linear_bwd_cuda(x, dy, g, bt, w, *, eps: float = 1e-5):
     dbp = torch.empty_like(dgp)
     fn = (lib.lafs_fused_ln_linear_bwd_bf16 if x.dtype == torch.bfloat16
           else lib.lafs_fused_ln_linear_bwd_f32)
-    with torch.cuda.device(x.device):
+    with _build.device_guard(x):
         err = fn(x.data_ptr(), dy.data_ptr(), g.data_ptr(), bt.data_ptr(),
                  w.data_ptr(), xn.data_ptr(), dx.data_ptr(), dgp.data_ptr(),
                  dbp.data_ptr(), t, d, w.shape[0], float(eps),

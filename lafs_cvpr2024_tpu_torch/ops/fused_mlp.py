@@ -201,7 +201,7 @@ def fused_ln_mlp_fwd_cuda(x, g, bt, w1, b1, w2, b2, *, eps: float = 1e-5,
     lib = _build.library()
     fn = (lib.lafs_fused_ln_mlp_bf16 if x.dtype == torch.bfloat16
           else lib.lafs_fused_ln_mlp_f32)
-    with torch.cuda.device(x.device):
+    with _build.device_guard(x):
         err = fn(x.data_ptr(), g.data_ptr(), bt.data_ptr(), w1.data_ptr(),
                  b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), y.data_ptr(),
                  u.data_ptr() if save_u else None, t, d, hdim, float(eps),
@@ -293,7 +293,7 @@ def fused_ln_mlp_bwd_cuda(x, u, dy, g, bt, w1, w2, *, eps: float = 1e-5,
     s, thresh, ik, drop = _drop_args(rate, seed)
     fn = (lib.lafs_fused_ln_mlp_bwd_bf16 if x.dtype == torch.bfloat16
           else lib.lafs_fused_ln_mlp_bwd_f32)
-    with torch.cuda.device(x.device):
+    with _build.device_guard(x):
         err = fn(x.data_ptr(), u.data_ptr(), dy.data_ptr(), g.data_ptr(),
                  bt.data_ptr(), w1.data_ptr(), w2.data_ptr(), do.data_ptr(),
                  hd.data_ptr(), du.data_ptr(), xn.data_ptr(), dx.data_ptr(),
@@ -384,7 +384,7 @@ def fused_mlp_fwd_cuda(x, w1, b1, w2, b2, *, rate: float = 0.0,
     lib = _build.library()
     fn = (lib.lafs_fused_mlp_bf16 if x.dtype == torch.bfloat16
           else lib.lafs_fused_mlp_f32)
-    with torch.cuda.device(x.device):
+    with _build.device_guard(x):
         err = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
                  b2.data_ptr(), y.data_ptr(), u.data_ptr() if save_u else None,
                  t, d, hdim, *_drop_args(rate, seed), _build.stream_ptr(x))
@@ -421,7 +421,7 @@ def fused_mlp_bwd_cuda(u, dy, w2, *, rate: float = 0.0, seed: int = 0):
     lib = _build.library()
     fn = (lib.lafs_fused_mlp_bwd_bf16 if dy.dtype == torch.bfloat16
           else lib.lafs_fused_mlp_bwd_f32)
-    with torch.cuda.device(dy.device):
+    with _build.device_guard(dy):
         err = fn(u.data_ptr(), dy.data_ptr(), w2.data_ptr(), do.data_ptr(),
                  hd.data_ptr(), du.data_ptr(), t, d, hdim,
                  *_drop_args(rate, seed), _build.stream_ptr(dy))

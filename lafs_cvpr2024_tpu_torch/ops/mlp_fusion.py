@@ -10,8 +10,8 @@ for bf16 x (T, 768) and the JAX layout of the weights, input by output:
 pre-activation, no LayerNorm and no backward.
 
 - :func:`mlp_fusion_cuda` launches the hand-written kernel
-  ``csrc/mlp_fusion.cu`` (any T: the ragged last block is masked, where the
-  TPU kernel pads T to its 256-row tile);
+  ``csrc/mlp_fusion.cu`` (any T: rows past T are zero-filled and not
+  stored, where the TPU kernel pads T to its 256-row tile);
 - :func:`mlp_fusion_plain` is the same function in PyTorch ops, the CPU
   path and the kernel's oracle;
 - :func:`mlp_fusion_dense` is the counterpart of ``xla_mlp`` at rate 0
@@ -38,6 +38,10 @@ from .fused_mlp import _drop_args, dropout_bits, inv_keep, keep_threshold
 #: the TPU kernel's token tile (``bench_mlp_fusion.py:38``): the row tile
 #: that keys the dropout hash
 TILE = 256
+#: the model width the kernel takes (the TPU kernel's, ``:37``) and the
+#: hidden chunk it walks: H must be a multiple of it
+WIDTH = 768
+HIDDEN_CHUNK = 256
 
 
 def mlp_fusion_weights_from_jax(w1, w2, device="cuda"):
@@ -73,8 +77,8 @@ def mlp_fusion_plain(x, w1, w2, *, rate: float = 0.0, seed: int = 0):
 
 def mlp_fusion_cuda(x, w1, w2, *, rate: float = 0.0, seed: int = 0):
     """Launch the row-10 kernel on bf16 x (T, D) on its CUDA device, with
-    w1 (D, H) and w2 (H, D) there in bf16 (D a multiple of 128 up to 768,
-    H a multiple of 128)."""
+    w1 (D, H) and w2 (H, D) there in bf16 (D = 768, H a multiple of 256:
+    the TPU kernel takes only D = 768, H = 2048)."""
     if not x.is_cuda or w1.device != x.device or w2.device != x.device:
         raise ValueError("mlp_fusion_cuda: x, w1 and w2 must be on one CUDA "
                          f"device (x on {x.device})")
@@ -88,15 +92,15 @@ def mlp_fusion_cuda(x, w1, w2, *, rate: float = 0.0, seed: int = 0):
             f"mlp_fusion_cuda: shapes x {tuple(x.shape)}, w1 "
             f"{tuple(w1.shape)}, w2 {tuple(w2.shape)} do not form an MLP "
             f"of width {d} -> {hdim} on (T, D) rows (w1 is (D, H))")
-    if d % 128 or d > 768 or hdim % 128:
-        raise ValueError("mlp_fusion_cuda takes D % 128 == 0, D <= 768 and "
-                         f"H % 128 == 0; got D={d}, H={hdim}")
+    if d != WIDTH or hdim < HIDDEN_CHUNK or hdim % HIDDEN_CHUNK:
+        raise ValueError(f"mlp_fusion_cuda takes D = {WIDTH} and H a "
+                         f"multiple of {HIDDEN_CHUNK}; got D={d}, H={hdim}")
     x, w1, w2 = x.contiguous(), w1.contiguous(), w2.contiguous()
-    if w1.data_ptr() % 32 or w2.data_ptr() % 32:
-        raise ValueError("mlp_fusion_cuda: the weights must be 32-byte "
-                         "aligned (tensor-core fragment loads)")
+    if any(t.data_ptr() % 16 for t in (x, w1, w2)):
+        raise ValueError("mlp_fusion_cuda: x, w1 and w2 must be 16-byte "
+                         "aligned (TMA loads)")
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
+    with _build.device_guard(x):
         err = _build.library().lafs_mlp_fusion_bf16(
             x.data_ptr(), w1.data_ptr(), w2.data_ptr(), y.data_ptr(),
             x.shape[0], d, hdim, *_drop_args(rate, seed),

@@ -44,7 +44,7 @@ def patch_gather_cuda(images: torch.Tensor, landmarks: torch.Tensor,
     out = torch.empty((b, n, patch_size * patch_size * c),
                       dtype=images.dtype, device=images.device)
     lib = _build.library()
-    with torch.cuda.device(images.device):
+    with _build.device_guard(images):
         err = lib.lafs_patch_gather(
             images.data_ptr(), landmarks.data_ptr(), out.data_ptr(),
             b, h, w, c, n, patch_size,

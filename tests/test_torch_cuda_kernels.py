@@ -19,8 +19,9 @@ agree to 1e-5 relative in fp32 and 2e-2 in bf16 (fp32 logits and softmax in
 both; the products accumulate in another order, and bf16 A and dS may
 round one ulp apart). So do the flash attention forward and its two
 backward kernels (11a-c) at any length N, the logsumexp within 1e-5. The
-bias-free fused MLP of row 10 agrees to 2e-2 in bf16 (its only dtype) at a
-ragged T and at the microbenchmark's, and where its arithmetic is exact
+bias-free fused MLP of row 10 agrees to 2e-2 in bf16 (its only dtype) at T
+from 1 to the microbenchmark's (the edges of its 64-row cluster tile and
+of the hash's 256-row tile included), and where its arithmetic is exact
 (one-hot W2, a constant hidden layer) its output equals the plain
 version's bit for bit at rate 0.1, which holds both dropout masks. The
 batched face warp on the card equals its run on the CPU (the numpy warp's
@@ -549,8 +550,12 @@ def test_simmim_model_kernel_configuration_matches_plain(cuda):
 
 # --------------------------------------------- kernels 11a-c (flash) --
 
+# every tail width of kernel 11a's last key block (16, 32, 48, 64 keys), the
+# single-block path (N <= 64) and several blocks, at H = 11
 FLASH_SHAPES = [(3, 2, 1), (3, 2, 37), (2, 3, 64), (2, 3, 128), (2, 3, 130),
-                (4, 11, 197), (2, 2, 600), (1, 2, 1024)]
+                (4, 11, 197), (2, 2, 600), (1, 2, 1024), (2, 11, 16),
+                (2, 11, 17), (2, 11, 48), (2, 11, 49), (2, 11, 63),
+                (2, 11, 65), (3, 11, 197)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -672,7 +677,10 @@ def _mlp_fusion_operands(cuda, t, seed):
     return x.to(cuda, torch.bfloat16), w1, w2
 
 
-@pytest.mark.parametrize("t", [300, 22016])
+# the cluster's 64-row tile, the TPU hash's 256-row tile and their edges,
+# a ragged T and the microbenchmark's two
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 255, 256, 257, 300, 22016,
+                               22080])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_mlp_fusion_kernel_matches_plain(cuda, t, rate):
     x, w1, w2 = _mlp_fusion_operands(cuda, t, t)
@@ -686,7 +694,7 @@ def test_mlp_fusion_kernel_matches_plain(cuda, t, rate):
     assert _rel(got, want) <= 2e-2
     # the output draw: zeros where the plain version's mask drops
     assert torch.equal(got == 0, want == 0)
-    if rate:
+    if rate and t >= 255:  # enough elements for the keep fraction
         assert abs((got != 0).float().mean().item() - 0.9) <= 0.01
 
 
@@ -716,6 +724,15 @@ def test_mlp_fusion_kernel_refuses_what_it_does_not_take(cuda):
         mlp_fusion_cuda(x.float(), w1, w2)
     with pytest.raises(ValueError, match="do not form an MLP"):
         mlp_fusion_cuda(x, w1.t(), w2)
+    # the widths the kernel no longer takes: D other than 768, H not a
+    # multiple of 256
+    for d, h in ((128, 256), (640, 2048), (768, 128), (768, 384)):
+        with pytest.raises(ValueError, match="takes D = 768"):
+            mlp_fusion_cuda(x[:, :d].contiguous(),
+                            w1[:d, :h].contiguous(), w2[:h, :d].contiguous())
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flat = torch.zeros(8 * 768 + 1, device=cuda, dtype=torch.bfloat16)
+        mlp_fusion_cuda(flat[1:].view(8, 768), w1, w2)
 
 
 # ----------------------------------------------- the card's face warp --
