@@ -13,8 +13,8 @@ microbenchmark's fused kernel (row 10) and the evaluation CLIs. Phases,
 one line each:
 
 1. the device (and ``nvidia-smi``'s name and power limit), the kernels'
-   build and ptxas's registers and spills of the two Hopper kernels (11a
-   bf16 and row 10; a spill fails the run);
+   build and ptxas's registers and spills of the Hopper kernels (6 and 7's
+   two passes, 11a, all bf16, and row 10; a spill fails the run);
 2. kernel 1 (patch gather) against its plain PyTorch version at
    (128, 112, 112, 3) images and 196 landmarks, including landmarks at and
    beyond every edge, in fp32 and bf16;
@@ -46,11 +46,13 @@ one line each:
    0 from the same state and tokens: loss within 1e-4 relative, every
    student gradient at cosine ≥ 0.9995;
 9. kernel 6 (fused attention forward) against its plain version at the
-   supervised step's (200, 11, 197, 64) and at S = 128, 130 and 512, on
-   strided views of a ``to_qkv`` output, bf16 and fp32: kernel, plain and
-   einsum-path (``torch.matmul`` + softmax) ms;
-10. kernel 7 (its backward) the same way: dQ, dK, dV within tolerance,
-    kernel, plain and einsum-autograd ms;
+   supervised step's (200, 11, 197, 64) and at S = 128, 130, 256, 257 and
+   512, on strided views of a ``to_qkv`` output, bf16 and fp32: kernel,
+   plain, einsum-path (``torch.matmul`` + softmax) and SDPA ms beside the
+   bound;
+10. kernel 7 (its backward) the same way: dQ, dK, dV within tolerance and
+    finite, kernel, plain, einsum-autograd and SDPA-autograd ms beside the
+    bound;
 11. the supervised finetuning step (``train/supervised.py``) at the
     ``configs/finetune_webface4m.toml`` recipe: CosFace over 205,990
     classes (s 64, m 0.4), 3 microbatches of 200 uint8 images, mixup 0.2
@@ -337,9 +339,10 @@ SUP_LR = 3e-4
 SUP_TIMED = 2                          # timed supervised steps per config
 SUP_CONFIGS = {"kernel": ("kernel", "fused_ln", "fused"),
                "plain": ("gather", "dense", "einsum")}
-# (B, H, S) of one attention call of the supervised step, and ragged S
+# (B, H, S) of one attention call of the supervised step, ragged S, the
+# edges of kernel 6's register-resident row (256, 257) and the longest S
 ATTN_SHAPES = ((SUP_BATCH, 11, 197), (8, 11, 128), (8, 11, 130),
-               (4, 11, 512))
+               (8, 11, 256), (8, 11, 257), (4, 11, 512))
 ATTN_TOLS = ((torch.bfloat16, 2e-2), (torch.float32, 1e-5))
 ATTN_SCALE = 768 ** -0.5               # the model-dim scale of Attention
 SIM_BATCH = 128                        # cli/train_simmim.py's batch a chip
@@ -414,7 +417,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 # the kernels written for Hopper (TMA, wgmma): ptxas must report no spill
-SM90_KERNELS = {"flash_attention (11a, bf16)": "flash_fwd_bf16",
+SM90_KERNELS = {"fused_attention (6, bf16)": "attn_fwd_bf16",
+                "fused_attention_bwd dq (7, bf16)": "attn_bwd_dq_bf16",
+                "fused_attention_bwd dkv (7, bf16)": "attn_bwd_dkv_bf16",
+                "flash_attention (11a, bf16)": "flash_fwd_bf16",
                 "mlp_fusion (row 10)": "mlp_fusion_bf16_kernel"}
 
 
@@ -429,6 +435,8 @@ def ptxas_report() -> dict:
                        None)
             if cur and "ILb" in mangled:  # the DROP template argument
                 cur += " dropout" if "ILb1E" in mangled else " rate 0"
+            if cur and "ILi" in mangled:  # kernel 6's 16-key slices NT
+                cur += f" NT={mangled.split('ILi')[1].split('E')[0]}"
             if cur:
                 out[cur] = {}
         elif cur and "spill stores" in line:
@@ -840,7 +848,8 @@ def phase_attn(dev, seed: int) -> dict:
                 times = (f" kernel_ms={res['ms']:.4f} plain_ms="
                          f"{res['plain_ms']:.4f} einsum_ms="
                          f"{res['einsum_ms']:.4f} sdpa_ms="
-                         f"{res['library_ms']:.4f}")
+                         f"{res['library_ms']:.4f} bound_ms="
+                         f"{res['bound_ms']:.4f} ({res['bound_by']})")
             print(f"phase 9 fused_attention ({b}, {h}, {s}, 64) {name}: "
                   f"max_abs_err={err:.3e} rel_err={rel:.3e} (tol {tol:g})"
                   f"{times} {'ok' if ok else 'FAIL'}", flush=True)
@@ -891,7 +900,8 @@ def phase_attn_bwd(dev, seed: int) -> dict:
                 times = (f" kernel_ms={res['ms']:.4f} plain_ms="
                          f"{res['plain_ms']:.4f} einsum_autograd_ms="
                          f"{res['einsum_ms']:.4f} sdpa_autograd_ms="
-                         f"{res['library_ms']:.4f}")
+                         f"{res['library_ms']:.4f} bound_ms="
+                         f"{res['bound_ms']:.4f} ({res['bound_by']})")
             print(f"phase 10 fused_attention_bwd ({b}, {h}, {s}, 64) {name}: "
                   "rel_err " + " ".join(f"d{n}={r:.2e}"
                                         for n, (_, r) in errs.items())

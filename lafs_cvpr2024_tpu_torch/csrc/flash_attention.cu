@@ -240,35 +240,19 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap mq,
   }
 }
 
-// The 4-D map of one (B, H, N, 64) operand with element strides st (b, h,
-// n): dims (D, H, N, B), or (D, N, H, B) when N's stride is the smaller,
-// so that the strides grow; box 64 x 64 rows of one (b, h).
-cudaError_t map(CUtensorMap* m, const void* p, const long long* st, int B,
-                int H, int N, bool hn) {
-  const unsigned long long bs = 2ull * st[0], hs = 2ull * st[1],
-                           ns = 2ull * st[2];
-  const unsigned long long dims[4] = {(unsigned long long)D,
-                                      (unsigned long long)(hn ? H : N),
-                                      (unsigned long long)(hn ? N : H),
-                                      (unsigned long long)B};
-  const unsigned long long strides[3] = {hn ? hs : ns, hn ? ns : hs, bs};
-  const unsigned box[4] = {(unsigned)D, hn ? 1u : (unsigned)ROWS,
-                           hn ? (unsigned)ROWS : 1u, 1u};
-  return lafs_sm90_host::make_map(m, p, 4, dims, strides, box);
-}
-
 int entry(const void* q, const void* k, const void* v, void* o, void* lse,
           const long long* st, int B, int H, int N, float scale,
           cudaStream_t stream) {
   // one dim order for all four maps: the kernel's coordinates follow it
+  using lafs_sm90_host::bhsd_map;
   const bool hn = st[1] <= st[2] && st[4] <= st[5] && st[7] <= st[8] &&
                   st[10] <= st[11];
   CUtensorMap mq, mk, mv, mo;
   cudaError_t err;
-  if ((err = map(&mq, q, st, B, H, N, hn)) != cudaSuccess ||
-      (err = map(&mk, k, st + 3, B, H, N, hn)) != cudaSuccess ||
-      (err = map(&mv, v, st + 6, B, H, N, hn)) != cudaSuccess ||
-      (err = map(&mo, o, st + 9, B, H, N, hn)) != cudaSuccess)
+  if ((err = bhsd_map(&mq, q, st, B, H, N, ROWS, hn)) != cudaSuccess ||
+      (err = bhsd_map(&mk, k, st + 3, B, H, N, ROWS, hn)) != cudaSuccess ||
+      (err = bhsd_map(&mv, v, st + 6, B, H, N, ROWS, hn)) != cudaSuccess ||
+      (err = bhsd_map(&mo, o, st + 9, B, H, N, ROWS, hn)) != cudaSuccess)
     return err;
   err = cudaFuncSetAttribute(flash_fwd_bf16,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's redesigned kernels, as
 // thin inline-PTX wrappers: mbarriers, TMA tile loads and stores through a
 // CUtensorMap, wgmma descriptors and products, the cluster helpers and
-// setmaxnreg. Kernel 11a (flash_attention.cu) and row 10 (mlp_fusion.cu)
-// use them.
+// setmaxnreg. Kernels 6 and 7 (fused_attention*.cu), 11a
+// (flash_attention.cu) and row 10 (mlp_fusion.cu) use them.
 //
 // Layout convention: every shared-memory tile is a TMA box whose rows are
 // exactly 128 bytes (64 bf16), loaded with CU_TENSOR_MAP_SWIZZLE_128B into
@@ -116,6 +116,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// `bytes` contiguous bytes, global -> shared (both 16-byte aligned, bytes a
+// multiple of 16), reported on `bar` like a tile load
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // shared -> global; elements of the box outside the tensor are not written
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
                                              uint32_t src, int c0, int c1,
@@ -180,6 +191,22 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n"
                "barrier.cluster.wait.acquire.aligned;" ::
                    : "memory");
+}
+
+// Rows [row, row + box rows) of head h of batch element b of a (B, H, S, 64)
+// operand whose map was made by lafs_sm90_host::bhsd_map: the coordinates
+// follow the map's dim order, (D, H, S, B) when `hs` else (D, S, H, B).
+__device__ __forceinline__ void tma_load_rows(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              uint32_t bar, bool hs, int b,
+                                              int h, int row) {
+  tma_load_4d(dst, map, bar, 0, hs ? h : row, hs ? row : h, b);
+}
+
+__device__ __forceinline__ void tma_store_rows(const CUtensorMap* map,
+                                               uint32_t src, bool hs, int b,
+                                               int h, int row) {
+  tma_store_4d(map, src, 0, hs ? h : row, hs ? row : h, b);
 }
 
 // ----------------------------------------------------------- setmaxnreg --
@@ -364,6 +391,31 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
   if constexpr (N == 192) wgmma_ss_n192<TB>(d, da, db, scale_d);
 }
 
+// Pins registers at this point of the program, so that nothing that reads
+// or writes them moves across: a wgmma's accumulator and A fragments just
+// before its fence, its accumulator just after its wait (the compiler sees
+// the product's outputs as written by the asm that issues it).
+template <int N>
+__device__ __forceinline__ void reg_fence(float* v) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(v[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&p)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(p[i][j])::"memory");
+}
+
+// 2^x on the special-function unit (relative error ~2^-22; -inf gives 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // bf16 pair (lo, hi) as one 32-bit register, lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -434,6 +486,23 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
          d, s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The 4-D map of one (B, H, S, 64) bf16 operand with element strides st
+// (b, h, s): dims (D, H, S, B) when `hs`, else (D, S, H, B); box 64 x
+// `rows` rows of one (b, h). Pick `hs` = st[1] <= st[2], so that the strides
+// grow, unless the kernel needs one order for all its maps.
+inline cudaError_t bhsd_map(CUtensorMap* m, const void* p, const long long* st,
+                            int B, int H, int S, unsigned rows, bool hs) {
+  const unsigned long long bs = 2ull * st[0], hst = 2ull * st[1],
+                           ss = 2ull * st[2];
+  const unsigned long long dims[4] = {64ull,
+                                      (unsigned long long)(hs ? H : S),
+                                      (unsigned long long)(hs ? S : H),
+                                      (unsigned long long)B};
+  const unsigned long long strides[3] = {hs ? hst : ss, hs ? ss : hst, bs};
+  const unsigned box[4] = {64u, hs ? 1u : rows, hs ? rows : 1u, 1u};
+  return make_map(m, p, 4, dims, strides, box);
 }
 
 }  // namespace lafs_sm90_host

@@ -20,8 +20,10 @@ the ``to_qkv`` output split into heads (D contiguous): the kernels read
 them in place, and the results come back as (B, H, S, D) views of
 (B, S, H, D) tensors, so the heads merge back without a copy. The TPU
 kernel pads S to a multiple of 128 and masks the padded keys with −1e30;
-the CUDA kernels skip keys at or past S themselves and compute no padded
-rows.
+the CUDA kernels mask keys at or past S themselves and store no padded
+rows. In bf16 both kernels are Hopper designs (TMA, ``wgmma``, the exact
+fp32 row softmax in registers); fp32 keeps the first FMA design, the
+precision check.
 """
 
 from __future__ import annotations
@@ -141,7 +143,10 @@ def fused_attention_bwd_cuda(q, k, v, do, scale: float):
     q, k, v, do = (_operand(t) for t in (q, k, v, do))
     b, h, s, d = q.shape
     dq, dk, dv = (_heads_view(q) for _ in range(3))
-    stats = torch.empty((3, b * h, s), device=q.device, dtype=torch.float32)
+    # each query row's max, 1/sum (or sum) and rowsum(dA ∘ A) between the
+    # two passes: (B·H, tiles, 3, 64) for bf16, (3, B·H, S) for fp32
+    stats = torch.empty(b * h * 3 * 64 * -(-s // 64), device=q.device,
+                        dtype=torch.float32)
     strides = _strides(q, k, v, do, dq, dk, dv)
     lib = _build.library()
     fn = (lib.lafs_fused_attention_bwd_bf16 if q.dtype == torch.bfloat16

@@ -17,7 +17,7 @@ width O. Dropout masks are the same bits: the kernels and the plain
 versions hash the same keys. The fused attention forward and backward
 agree to 1e-5 relative in fp32 and 2e-2 in bf16 (fp32 logits and softmax in
 both; the products accumulate in another order, and bf16 A and dS may
-round one ulp apart). So do the flash attention forward and its two
+round one ulp apart), and stay finite with logits up to 80. So do the flash attention forward and its two
 backward kernels (11a-c) at any length N, the logsumexp within 1e-5. The
 bias-free fused MLP of row 10 agrees to 2e-2 in bf16 (its only dtype) at T
 from 1 to the microbenchmark's (the edges of its 64-row cluster tile and
@@ -281,16 +281,39 @@ def _attn_operands(cuda, dtype, b, h, s, seed=3):
     return q, k, v, do
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("b,h,s", [(3, 2, 1), (3, 2, 37), (2, 3, 128),
-                                   (2, 3, 130), (4, 11, 197), (2, 2, 257),
-                                   (2, 2, 512)])
-def test_fused_attention_kernel_matches_plain(cuda, dtype, tol, b, h, s):
-    """Kernel 6 on strided views, ragged S: O within tolerance of the
-    plain version; the result is a view of a (B, S, H, D) tensor."""
+# every shape in both dtypes with logits of a few units: S = 1, the edges
+# of the 64-row tiles (63, 64, 65), ragged S, the path's 197 (also at
+# 25 · 11 = 275 (b, h), more blocks than one wave of two a multiprocessor),
+# the edges of kernel 6's register-resident row (208, 256 | 257) and the
+# longest S; then bf16 with logits up to 80 where the last query tile is
+# ragged (a peaked softmax whose padded rows could overflow)
+ATTN_SHAPES = [(3, 2, 1), (3, 2, 37), (2, 3, 63), (2, 3, 64), (2, 3, 65),
+               (2, 3, 128), (2, 3, 130), (4, 11, 197), (25, 11, 197),
+               (2, 2, 208), (2, 2, 256), (2, 2, 257), (2, 2, 512)]
+ATTN_CASES = ([(dtype, tol, *shape, None)
+               for dtype, tol in ((torch.float32, 1e-5),
+                                  (torch.bfloat16, 2e-2))
+               for shape in ATTN_SHAPES]
+              + [(torch.bfloat16, 2e-2, b, h, s, 80.0)
+                 for b, h, s in ((4, 11, 197), (2, 3, 65), (2, 2, 257))])
+
+
+def _attn_scale(q, k, peak):
+    """768^-0.5 · 4 (logits of a few units: a peaked softmax), or the scale
+    that puts the largest |logit| at ``peak``."""
+    if peak is None:
+        return 768 ** -0.5 * 4.0
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    return peak / logits.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype,tol,b,h,s,peak", ATTN_CASES)
+def test_fused_attention_kernel_matches_plain(cuda, dtype, tol, b, h, s,
+                                              peak):
+    """Kernel 6 on strided views, ragged S: O finite and within tolerance
+    of the plain version; the result is a view of a (B, S, H, D) tensor."""
     q, k, v, _ = _attn_operands(cuda, dtype, b, h, s)
-    scale = 768 ** -0.5 * 4.0  # logits of a few units: a peaked softmax
+    scale = _attn_scale(q, k, peak)
     before = _build.LAUNCHES["fused_attention"]
     got = fused_attention_cuda(q, k, v, scale)
     torch.cuda.synchronize()
@@ -302,15 +325,13 @@ def test_fused_attention_kernel_matches_plain(cuda, dtype, tol, b, h, s):
     assert _rel(got, want) <= tol
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("b,h,s", [(3, 2, 1), (3, 2, 37), (2, 3, 128),
-                                   (2, 3, 130), (4, 11, 197), (2, 2, 257),
-                                   (2, 2, 512)])
-def test_fused_attention_bwd_kernel_matches_plain(cuda, dtype, tol, b, h, s):
-    """Kernel 7: dQ, dK and dV within tolerance of the plain version."""
+@pytest.mark.parametrize("dtype,tol,b,h,s,peak", ATTN_CASES)
+def test_fused_attention_bwd_kernel_matches_plain(cuda, dtype, tol, b, h, s,
+                                                  peak):
+    """Kernel 7: dQ, dK and dV finite and within tolerance of the plain
+    version."""
     q, k, v, do = _attn_operands(cuda, dtype, b, h, s)
-    scale = 768 ** -0.5 * 4.0
+    scale = _attn_scale(q, k, peak)
     before = _build.LAUNCHES["fused_attention_bwd"]
     got = fused_attention_bwd_cuda(q, k, v, do, scale)
     torch.cuda.synchronize()

@@ -41,7 +41,9 @@ def _qkv(b, h, s, d=64, seed=0):
                  for _ in range(4))
 
 
-@pytest.mark.parametrize("s", [128, 130, 197])
+# the path's lengths, and the edges of kernel 6's register-resident row
+# (256) and of its two sweeps (257)
+@pytest.mark.parametrize("s", [128, 130, 197, 256, 257])
 def test_plain_forward_and_vjp_match_jax_interpret(s):
     q, k, v, do = _qkv(2, 2, s)
     scale = 128 ** -0.5
