@@ -14,7 +14,8 @@ one line each:
 
 1. the device (and ``nvidia-smi``'s name and power limit), the kernels'
    build and ptxas's registers and spills of the Hopper kernels (6 and 7's
-   two passes, 11a, all bf16, and row 10; a spill fails the run);
+   two passes, 11a-c, all bf16, and row 10; a spill, a missing kernel or a
+   serialised wgmma, ptxas's warning C7520, fails the run);
 2. kernel 1 (patch gather) against its plain PyTorch version at
    (128, 112, 112, 3) images and 196 landmarks, including landmarks at and
    beyond every edge, in fp32 and bf16;
@@ -93,12 +94,16 @@ one line each:
     one step of the grid variant (``use_landmarks=False``);
 15. kernels 11a-c (flash attention forward, dK/dV, dQ) against their plain
     versions at the SSL step's flash calls, globals (64, 11, 197, 64) and
-    locals (256, 11, 37, 64), and at N = 17, 49, 65 (11a's tail widths
-    and its single-block path), 128, 130 and 1,024, on strided
-    ``to_qkv`` views, bf16 (2e-2) and fp32 (1e-5), the fp32 logsumexp to
-    1e-5 and ``scaled_dot_product_attention``'s output to the same bars;
-    kernel, plain, SDPA forward and autograd-backward and bound ms at the
-    step's two shapes;
+    locals (256, 11, 37, 64), and at N = 17, 49, 65 (the 64-row tiles'
+    tail widths and the single-tile path), 128, 130 and 1,024, on strided
+    ``to_qkv`` views, bf16 (2e-2) and fp32 (1e-5), the fp32 logsumexp and
+    11c's statistics scratch to 1e-5 (its padded rows exactly +inf and 0)
+    and ``scaled_dot_product_attention``'s output to the same bars; at
+    the step's two shapes, kernel ms by events and by the profiler's
+    device time, plain, SDPA forward and autograd-backward and bound ms,
+    and 11c + 11b beside SDPA's whole backward on the device (events with
+    the launches queued behind a spin kernel);
+    ``flash_attention_bwd_cuda`` must run 11c and 11b and no other kernel;
 16. the card's JPEG decoder (nvJPEG with libjpeg's chroma upsampling)
     against PIL's decode of the fixture ``tests/data/ssl_rec`` (4:2:0
     records, and one face each in 4:4:4, 4:2:2 and grayscale): mean
@@ -209,11 +214,15 @@ from lafs_cvpr2024_tpu_torch.ops.augment_device import (
     scale_uint8,
 )
 from lafs_cvpr2024_tpu_torch.ops.flash_attention import (
+    flash_attention_bwd_cuda,
     flash_attention_bwd_dkv_cuda,
+    flash_attention_bwd_dkv_plain,
     flash_attention_bwd_dq_cuda,
+    flash_attention_bwd_dq_plain,
     flash_attention_bwd_plain,
     flash_attention_fwd_cuda,
     flash_attention_plain,
+    stats_tiles,
 )
 from lafs_cvpr2024_tpu_torch.ops.fused_attention import (
     fused_attention_bwd_cuda,
@@ -417,10 +426,13 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 # the kernels written for Hopper (TMA, wgmma): ptxas must report no spill
+# and no serialised wgmma (warning C7520)
 SM90_KERNELS = {"fused_attention (6, bf16)": "attn_fwd_bf16",
                 "fused_attention_bwd dq (7, bf16)": "attn_bwd_dq_bf16",
                 "fused_attention_bwd dkv (7, bf16)": "attn_bwd_dkv_bf16",
                 "flash_attention (11a, bf16)": "flash_fwd_bf16",
+                "flash_attention_bwd dkv (11b, bf16)": "flash_bwd_dkv_bf16",
+                "flash_attention_bwd dq (11c, bf16)": "flash_bwd_dq_bf16",
                 "mlp_fusion (row 10)": "mlp_fusion_bf16_kernel"}
 
 
@@ -450,6 +462,15 @@ def ptxas_report() -> dict:
             out[cur]["smem"] = (int(words[words.index("smem") - 2])
                                 if "smem" in words else 0)
     return out
+
+
+def serialised_wgmma() -> list:
+    """ptxas's C7520 warnings (every wgmma of a kernel serialised), each
+    with the ``SM90_KERNELS`` entry it names, if any."""
+    lines = [line for line in _build.ptxas_log().read_text().splitlines()
+             if "C7520" in line]
+    return [(next((k for k, v in SM90_KERNELS.items() if v in line), "?"),
+             line.strip()) for line in lines]
 
 
 def card() -> str:
@@ -1690,29 +1711,92 @@ def phase_serve(dev, seed: int, state: dict) -> dict:
 def flash_operands(dev, dtype, b: int, h: int, n: int, seed: int):
     """q, k, v as strided views of one ``to_qkv`` output and a dO, as
     :func:`attn_operands` makes them, with the plain forward's O and lse
-    (the backward kernels' other inputs) and di = rowsum(O dO)."""
+    (the backward kernels' other inputs)."""
     q, k, v, do = attn_operands(dev, dtype, b, h, n, seed)
     o, lse = flash_attention_plain(q, k, v, ATTN_SCALE)
-    return q, k, v, do, o, lse, (o.float() * do.float()).sum(-1)
+    return q, k, v, do, o, lse
 
 
-def flash_bounds(q, k, v, do, o, lse, di, dtype) -> dict:
-    """Bounds of 11a (2 products), 11b (4: s, dp, dV, dK) and 11c (3: s, dp,
-    dQ) on the real rows, each input read once, each output written once."""
+def flash_bounds(q, k, v, do, o, lse, dtype) -> dict:
+    """Bounds of 11a (2 products), 11c (3: s, dp, dQ; reads O and lse,
+    writes the statistics scratch) and 11b (4: s, dp, dV, dK; reads the
+    scratch) on the real rows, each input read once, each output written
+    once."""
     b, h, n, d = q.shape
     mm = 2 * b * h * n * n * d
+    scratch = b * h * stats_tiles(n) * 2 * 64 * 4  # bytes
     return {"flash_attention": bound(2 * mm, nbytes(q, k, v, o, lse), dtype),
             "flash_attention_bwd_dkv": bound(
-                4 * mm, nbytes(q, k, v, do, lse, di, k, v), dtype),
+                4 * mm, nbytes(q, k, v, do, k, v) + scratch, dtype),
             "flash_attention_bwd_dq": bound(
-                3 * mm, nbytes(q, k, v, do, lse, di, q), dtype)}
+                3 * mm, nbytes(q, k, v, o, do, lse, q) + scratch, dtype)}
+
+
+def device_ms(fn, keys, iters: int = 10) -> dict:
+    """Device time of ``fn``'s kernels by the profiler: for each of
+    ``keys``, the mean ms of one launch of the kernels whose names hold it
+    and how many launches were recorded; and the launches of any other
+    kernel (``"other"``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    out = {}
+    for key in keys:
+        mine = [e for e in kernels if key in e.key]
+        n = sum(e.count for e in mine)
+        out[key] = (sum(e.self_device_time_total for e in mine)
+                    / max(n, 1) / 1e3, n)
+    out["other"] = sum(e.count for e in kernels
+                       if not any(key in e.key for key in keys))
+    return out
+
+
+def queued_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn`` by CUDA events, with the host's
+    launches queued behind a spin kernel, so that the calls run back to
+    back on the card and no host time falls between them."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # ~30 ms of cycles: the host gets ahead
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def stats_err(stats, want, n: int):
+    """The larger (max abs, relative) error of the real rows of 11c's
+    scratch against the plain twin's, lse·log2 e and di each relative to
+    itself, and whether every padded row holds +inf and 0."""
+    got, ref = (t.permute(0, 2, 1, 3).flatten(2) for t in (stats, want))
+    pad_ok = bool((got[:, 0, n:] == float("inf")).all()
+                  and (got[:, 1, n:] == 0).all())
+    errs = [rel_err(got[:, i, :n], ref[:, i, :n]) for i in (0, 1)]
+    return max(errs, key=lambda e: e[1]), pad_ok
 
 
 def phase_flash(dev, seed: int) -> dict:
     """Kernels 11a-c against their plain versions at the SSL step's global
     and local shapes and at ``FLASH_EXTRA``'s N, on strided ``to_qkv``
-    views, bf16 and fp32; SDPA's output held to the same bar; kernel,
-    plain, SDPA and bound ms at the step's two shapes in bf16."""
+    views, bf16 and fp32: 11c's dQ and statistics scratch, 11b's dK and dV
+    on it; SDPA's output held to the same bar. At the step's two shapes in
+    bf16: kernel ms by events and by the profiler's device time per
+    launch, plain, SDPA forward and autograd backward and bound ms, and
+    the whole backward of 11c + 11b beside SDPA's, both by events with the
+    launches queued (device time)."""
     out = {}
     shapes = [("global", FLASH_SHAPES["global"]),
               ("local", FLASH_SHAPES["local"])]
@@ -1720,32 +1804,48 @@ def phase_flash(dev, seed: int) -> dict:
     for i, (name, (b, h, n)) in enumerate(shapes):
         for dtype, tol in ATTN_TOLS:
             ops = flash_operands(dev, dtype, b, h, n, seed + 40 + i)
-            q, k, v, do, o_p, lse_p, di = ops
+            q, k, v, do, o_p, lse_p = ops
             o, lse = flash_attention_fwd_cuda(q, k, v, ATTN_SCALE)
-            dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse_p, di,
+            dq, stats = flash_attention_bwd_dq_cuda(q, k, v, o_p, do, lse_p,
+                                                    ATTN_SCALE)
+            dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, stats,
                                                   ATTN_SCALE)
-            dq = flash_attention_bwd_dq_cuda(q, k, v, do, lse_p, di,
-                                             ATTN_SCALE)
             want = flash_attention_bwd_plain(q, k, v, o_p, lse_p, do,
                                              ATTN_SCALE)
+            _, stats_p = flash_attention_bwd_dq_plain(q, k, v, o_p, do, lse_p,
+                                                      ATTN_SCALE)
             sdpa = F.scaled_dot_product_attention(q, k, v, scale=ATTN_SCALE)
             torch.cuda.synchronize()
             got = (o, dq, dk, dv)
             require(all(t.shape == (b, h, n, 64) and t.dtype == dtype
                         and bool(torch.isfinite(t).all()) for t in got),
                     f"flash outputs at {name} in {dtype}")
+            st_err, pad_ok = stats_err(stats, stats_p, n)
             errs = {"o": rel_err(o, o_p), "lse": rel_err(lse, lse_p),
+                    "stats": st_err,
                     "dq": rel_err(dq, want[0]), "dk": rel_err(dk, want[1]),
                     "dv": rel_err(dv, want[2]), "sdpa": rel_err(sdpa, o_p)}
-            ok = (errs["lse"][1] <= 1e-5
+            ok = (pad_ok and errs["lse"][1] <= 1e-5 and st_err[1] <= 1e-5
                   and all(r <= tol for key, (_, r) in errs.items()
-                          if key != "lse"))
+                          if key not in ("lse", "stats")))
             dt = dtype_name(dtype)
             times = ""
             if dtype == torch.bfloat16 and name in FLASH_SHAPES:
                 leaves = [t.detach().requires_grad_() for t in (q, k, v)]
                 o_sdpa = F.scaled_dot_product_attention(*leaves,
                                                         scale=ATTN_SCALE)
+                sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                    o_sdpa, leaves, do, retain_graph=True)
+                bwd = lambda: flash_attention_bwd_cuda(  # noqa: E731
+                    q, k, v, o_p, lse_p, do, ATTN_SCALE)
+                dev_ms = device_ms(bwd, ("flash_bwd_dq", "flash_bwd_dkv"))
+                # the backward wrapper runs 11c and 11b and nothing else
+                require(dev_ms["other"] == 0 and dev_ms["flash_bwd_dq"][1]
+                        and dev_ms["flash_bwd_dkv"][1],
+                        f"flash_attention_bwd_cuda ran other kernels: "
+                        f"{dev_ms}")
+                dev_ms.update(device_ms(lambda: flash_attention_fwd_cuda(
+                    q, k, v, ATTN_SCALE), ("flash_fwd_",)))
                 res = dict(
                     errs=errs,
                     ms={"flash_attention": cuda_ms(
@@ -1753,32 +1853,45 @@ def phase_flash(dev, seed: int) -> dict:
                                                              ATTN_SCALE)),
                         "flash_attention_bwd_dkv": cuda_ms(
                             lambda: flash_attention_bwd_dkv_cuda(
-                                q, k, v, do, lse_p, di, ATTN_SCALE)),
+                                q, k, v, do, stats, ATTN_SCALE)),
                         "flash_attention_bwd_dq": cuda_ms(
                             lambda: flash_attention_bwd_dq_cuda(
-                                q, k, v, do, lse_p, di, ATTN_SCALE))},
+                                q, k, v, o_p, do, lse_p, ATTN_SCALE))},
+                    device_ms={kern: dev_ms[key] for kern, key in zip(
+                        FLASH_KERNELS,
+                        ("flash_fwd_", "flash_bwd_dkv", "flash_bwd_dq"))},
+                    bwd_queued_ms=queued_ms(bwd),
                     plain_fwd_ms=cuda_ms(lambda: flash_attention_plain(
                         q, k, v, ATTN_SCALE), iters=5),
                     plain_bwd_ms=cuda_ms(lambda: flash_attention_bwd_plain(
                         q, k, v, o_p, lse_p, do, ATTN_SCALE), iters=5),
                     sdpa_fwd_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                         q, k, v, scale=ATTN_SCALE)),
-                    sdpa_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
-                        o_sdpa, leaves, do, retain_graph=True)),
+                    sdpa_bwd_ms=cuda_ms(sdpa_bwd),
+                    sdpa_bwd_queued_ms=queued_ms(sdpa_bwd),
                     bounds=flash_bounds(*ops, dtype))
-                del o_sdpa
+                del o_sdpa, sdpa_bwd, bwd
                 out[name] = res
-                times = (" ms: " + " ".join(
-                    f"{k_}={v_:.4f} (bound {res['bounds'][k_]['bound_ms']:.4f}"
-                    f" {res['bounds'][k_]['bound_by']})"
+                dv_ = res["device_ms"]
+                bwd_sum = (dv_["flash_attention_bwd_dkv"][0]
+                           + dv_["flash_attention_bwd_dq"][0])
+                times = (" ms (events; device by the profiler, launches "
+                         "recorded): " + " ".join(
+                    f"{k_}={v_:.4f}; {dv_[k_][0]:.4f} x{dv_[k_][1]} (bound "
+                    f"{res['bounds'][k_]['bound_ms']:.4f} "
+                    f"{res['bounds'][k_]['bound_by']})"
                     for k_, v_ in res["ms"].items())
                     + f" plain_fwd={res['plain_fwd_ms']:.4f} plain_bwd="
                     f"{res['plain_bwd_ms']:.4f} sdpa_fwd="
                     f"{res['sdpa_fwd_ms']:.4f} sdpa_bwd="
-                    f"{res['sdpa_bwd_ms']:.4f}")
+                    f"{res['sdpa_bwd_ms']:.4f}; 11b+11c device "
+                    f"{bwd_sum:.4f}, whole backward queued "
+                    f"{res['bwd_queued_ms']:.4f} vs SDPA whole backward "
+                    f"queued {res['sdpa_bwd_queued_ms']:.4f}")
             print(f"phase 15 flash ({b}, {h}, {n}, 64) {name} {dt}: rel_err "
                   + " ".join(f"{k_}={r:.2e}" for k_, (_, r) in errs.items())
-                  + f" (tol {tol:g}, lse 1e-5){times} "
+                  + f" padded_stats={'ok' if pad_ok else 'BAD'}"
+                  + f" (tol {tol:g}, lse and stats 1e-5){times} "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             require(ok, f"kernels 11a-c or SDPA disagree at {name} in {dt}")
     return out
@@ -2320,12 +2433,15 @@ def main(argv=None) -> int:
     ptxas = ptxas_report()
     spills = {k: v for k, v in ptxas.items()
               if v.get("spill_stores", 1) or v.get("spill_loads", 1)}
-    ok = (not spills and all(any(name in k for k in ptxas)
-                             for name in SM90_KERNELS))
+    serial = serialised_wgmma()
+    ok = (not spills and not serial
+          and all(any(name in k for k in ptxas) for name in SM90_KERNELS))
     print(f"phase 1 ptxas (registers, static smem bytes, spill store/load "
-          f"bytes) of the Hopper kernels: {json.dumps(ptxas)} "
+          f"bytes) of the Hopper kernels: {json.dumps(ptxas)}; C7520 "
+          f"(serialised wgmma): {serial or 'none'} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
-    require(ok, f"a Hopper kernel spills or is missing: {ptxas}")
+    require(ok, f"a Hopper kernel spills, serialises its wgmmas or is "
+                f"missing: {ptxas} {serial}")
 
     gather = phase_gather(dev, args.seed)
     phase_mlp(dev, args.seed)

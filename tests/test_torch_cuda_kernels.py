@@ -18,7 +18,10 @@ versions hash the same keys. The fused attention forward and backward
 agree to 1e-5 relative in fp32 and 2e-2 in bf16 (fp32 logits and softmax in
 both; the products accumulate in another order, and bf16 A and dS may
 round one ulp apart), and stay finite with logits up to 80. So do the flash attention forward and its two
-backward kernels (11a-c) at any length N, the logsumexp within 1e-5. The
+backward kernels (11a-c) at any length N, the logsumexp and 11c's
+statistics scratch within 1e-5 (its padded rows exactly +inf and 0); the
+backward runs 11c, then 11b, and no other kernel, and two launches of each
+give the same bits. The
 bias-free fused MLP of row 10 agrees to 2e-2 in bf16 (its only dtype) at T
 from 1 to the microbenchmark's (the edges of its 64-row cluster tile and
 of the hash's 256-row tile included), and where its arithmetic is exact
@@ -50,7 +53,10 @@ from lafs_cvpr2024_tpu_torch.ops.fused_attention import (
 from lafs_cvpr2024_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd_cuda,
+    flash_attention_bwd_dkv_cuda,
+    flash_attention_bwd_dkv_plain,
     flash_attention_bwd_dq_cuda,
+    flash_attention_bwd_dq_plain,
     flash_attention_bwd_plain,
     flash_attention_fwd_cuda,
     flash_attention_plain,
@@ -571,12 +577,15 @@ def test_simmim_model_kernel_configuration_matches_plain(cuda):
 
 # --------------------------------------------- kernels 11a-c (flash) --
 
-# every tail width of kernel 11a's last key block (16, 32, 48, 64 keys), the
-# single-block path (N <= 64) and several blocks, at H = 11
+# every tail width of the last 64-row tile (16, 32, 48, 64 rows: 11a's and
+# 11c's last key block, 11b's last query tile and its ragged key tile),
+# the single-tile path (N <= 64) and several tiles, at H = 11; past four
+# tiles (193, 208 with a full last 16, 256, 257 with one row) and long N
 FLASH_SHAPES = [(3, 2, 1), (3, 2, 37), (2, 3, 64), (2, 3, 128), (2, 3, 130),
                 (4, 11, 197), (2, 2, 600), (1, 2, 1024), (2, 11, 16),
                 (2, 11, 17), (2, 11, 48), (2, 11, 49), (2, 11, 63),
-                (2, 11, 65), (3, 11, 197)]
+                (2, 11, 65), (3, 11, 197), (2, 3, 193), (2, 3, 208),
+                (2, 2, 256), (2, 2, 257)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -626,6 +635,100 @@ def test_flash_attention_bwd_kernels_match_plain(cuda, dtype, tol, b, h, n):
             assert _rel(a, w) <= tol, name
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,h,n", [(3, 2, 1), (3, 2, 37), (2, 3, 130),
+                                   (4, 11, 197), (2, 3, 208), (2, 2, 257)])
+def test_flash_attention_bwd_kernels_match_their_twins(cuda, dtype, tol, b,
+                                                        h, n):
+    """11c's dQ and statistics scratch against
+    ``flash_attention_bwd_dq_plain`` (real rows: lse·log2 e and di within
+    1e-5; padded rows exactly +inf and 0), and 11b on that scratch against
+    ``flash_attention_bwd_dkv_plain``; lse read in place from a strided
+    view."""
+    q, k, v, do = _attn_operands(cuda, dtype, b, h, n, seed=9)
+    scale = 768 ** -0.5 * 4.0
+    o, lse = flash_attention_plain(q, k, v, scale)
+    lse_view = torch.empty(b, n, h, device=cuda).transpose(1, 2)
+    lse_view.copy_(lse)
+    dq, stats = flash_attention_bwd_dq_cuda(q, k, v, o, do, lse_view, scale)
+    dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, stats, scale)
+    torch.cuda.synchronize()
+    dq_w, stats_w = flash_attention_bwd_dq_plain(q, k, v, o, do, lse, scale)
+    dk_w, dv_w = flash_attention_bwd_dkv_plain(q, k, v, do, stats_w, scale)
+    assert stats.shape == stats_w.shape == (b * h, -(-n // 64), 2, 64)
+    got = stats.permute(0, 2, 1, 3).reshape(b * h, 2, -1)
+    want = stats_w.permute(0, 2, 1, 3).reshape(b * h, 2, -1)
+    for i in (0, 1):
+        assert _rel(got[:, i, :n], want[:, i, :n]) <= 1e-5, i
+    assert bool((got[:, 0, n:] == float("inf")).all())
+    assert bool((got[:, 1, n:] == 0).all())
+    for name, a, w in (("dq", dq, dq_w), ("dk", dk, dk_w), ("dv", dv, dv_w)):
+        assert a.dtype == dtype and a.shape == (b, h, n, 64), name
+        assert bool(torch.isfinite(a).all()), name
+        if n == 1 and name != "dv":
+            assert a.abs().max() <= tol * dv_w.abs().max(), name
+        else:
+            assert _rel(a, w) <= tol, name
+
+
+@pytest.mark.parametrize("b,h,n", [(4, 11, 197), (2, 3, 65), (2, 2, 257)])
+def test_flash_attention_bwd_kernels_stay_finite_at_logits_80(cuda, b, h, n):
+    """bf16 with the largest |logit| at 80 and a ragged last tile (a peaked
+    softmax whose padded rows and keys could overflow): dQ, dK, dV finite
+    and within 2e-2 of the plain backward."""
+    q, k, v, do = _attn_operands(cuda, torch.bfloat16, b, h, n)
+    scale = _attn_scale(q, k, 80.0)
+    o, lse = flash_attention_plain(q, k, v, scale)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel(a, w) <= 2e-2, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernels_are_deterministic(cuda, dtype):
+    """Two launches of 11c and of 11b on the same inputs give the same bits
+    (no atomics: each output element is summed by one block in order)."""
+    q, k, v, do = _attn_operands(cuda, dtype, 4, 11, 197, seed=5)
+    o, lse = flash_attention_plain(q, k, v, 0.1)
+    runs = []
+    for _ in range(2):
+        dq, stats = flash_attention_bwd_dq_cuda(q, k, v, o, do, lse, 0.1)
+        runs.append((dq, stats, *flash_attention_bwd_dkv_cuda(
+            q, k, v, do, stats, 0.1)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_bwd_runs_11c_then_11b_and_nothing_else(cuda):
+    """``flash_attention_bwd_cuda`` on the card: one launch of 11c, then one
+    of 11b, and no other kernel (no plain-PyTorch di pass), by the
+    profiler's device trace and the launch counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, do = _attn_operands(cuda, torch.bfloat16, 4, 11, 197)
+    o, lse = flash_attention_plain(q, k, v, 0.1)
+    torch.cuda.synchronize()
+    before = dict(_build.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        flash_attention_bwd_cuda(q, k, v, o, lse, do, 0.1)
+        torch.cuda.synchronize()
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert _build.LAUNCHES[name] == before.get(name, 0) + 1, name
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    names = [e.name for e in kernels]
+    assert len(names) == 2, names
+    assert "flash_bwd_dq_bf16" in names[0] and "flash_bwd_dkv_bf16" in names[1]
+
+
 def test_flash_attention_autograd_launches_all_kernels(cuda):
     """FlashAttention on the card: 11a forward, 11b and 11c backward, the
     gradients within 1e-5 of the same function run on the CPU (plain), and
@@ -653,9 +756,11 @@ def test_flash_attention_kernel_refuses_shapes_it_does_not_take(cuda):
         flash_attention(y, y, y, 0.1)
     x = torch.zeros(1, 2, 16, 64, device=cuda)
     with pytest.raises(ValueError, match="fp32"):
-        flash_attention_bwd_dq_cuda(x, x, x, x, torch.zeros(1, 2, 16,
-                                    device=cuda, dtype=torch.bfloat16),
-                                    torch.zeros(1, 2, 16, device=cuda), 0.1)
+        flash_attention_bwd_dq_cuda(x, x, x, x, x, torch.zeros(
+            1, 2, 16, device=cuda, dtype=torch.bfloat16), 0.1)
+    with pytest.raises(ValueError, match="fp32"):
+        flash_attention_bwd_dkv_cuda(x, x, x, x, torch.zeros(
+            2, 1, 2, 32, device=cuda), 0.1)
 
 
 # ------------------------------------------------ the card's JPEG decode --

@@ -31,7 +31,10 @@ from lafs_cvpr2024_tpu.train import ssl as jax_ssl
 from lafs_cvpr2024_tpu_torch.models.layers import Attention
 from lafs_cvpr2024_tpu_torch.models.partfvit import PartFViTConfig
 from lafs_cvpr2024_tpu_torch.ops.flash_attention import (
+    LOG2E,
     flash_attention,
+    flash_attention_bwd_dkv_plain,
+    flash_attention_bwd_dq_plain,
     flash_attention_bwd_plain,
     flash_attention_plain,
 )
@@ -114,6 +117,51 @@ def test_flash_bwd_plain_is_softmax_attention_vjp():
     want = torch.autograd.grad(ref, leaves, do)
     for a, w in zip(got, want):
         assert _rel(a.numpy(), w.numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("n", LENGTHS)
+def test_flash_bwd_twins_match_bwd_plain_and_jax(jax_flash_on_cpu, n):
+    """Kernel 11c's plain twin (dQ and the statistics scratch) and kernel
+    11b's (dK, dV from that scratch), composed, against
+    ``flash_attention_bwd_plain`` and the VJP of the padded,
+    segment-masked JAX path (fp32, 1e-4)."""
+    q, k, v, do = _qkv_do(n, 200 + n)
+    _, vjp = jax.vjp(lambda a, b_, c: jax_layers._flash_attention(
+        a, b_, c, SCALE), *map(jnp.asarray, (q, k, v)))
+    want_jax = vjp(jnp.asarray(do))
+    q, k, v, do = map(torch.from_numpy, (q, k, v, do))
+    o, lse = flash_attention_plain(q, k, v, SCALE)
+    dq, stats = flash_attention_bwd_dq_plain(q, k, v, o, do, lse, SCALE)
+    dk, dv = flash_attention_bwd_dkv_plain(q, k, v, do, stats, SCALE)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, SCALE)
+    for name, a, w, wj in zip("qkv", (dq, dk, dv), want, want_jax):
+        assert _rel(a.numpy(), w.numpy()) <= 1e-4, name
+        assert _rel(a.numpy(), wj) <= 1e-4, name
+
+
+@pytest.mark.parametrize("n", LENGTHS)
+def test_flash_bwd_statistics_scratch_layout(n):
+    """The scratch between 11c and 11b: (B·H, ⌈N/64⌉, 2, 64) fp32, each
+    64-row query tile's lse·log2 e, then its rowsum(O ∘ dO); rows past N
+    hold +inf and 0, so p = 2^(s·c − lse·log2 e) is exactly 0 there for
+    any finite score."""
+    b, h = 2, 3
+    q, k, v, do = map(torch.from_numpy, _qkv_do(n, 300 + n, b, h))
+    o, lse = flash_attention_plain(q, k, v, SCALE)
+    _, stats = flash_attention_bwd_dq_plain(q, k, v, o, do, lse, SCALE)
+    tiles = -(-n // 64)
+    assert stats.shape == (b * h, tiles, 2, 64)
+    assert stats.dtype == torch.float32 and stats.is_contiguous()
+    rows = stats.permute(0, 2, 1, 3).reshape(b, h, 2, tiles * 64)
+    di = (o.double() * do.double()).sum(-1)
+    assert _rel(rows[:, :, 0, :n].numpy(), (lse * LOG2E).numpy()) <= 1e-6
+    assert _rel(rows[:, :, 1, :n].numpy(), di.numpy()) <= 1e-5
+    pad = rows[:, :, :, n:]
+    assert bool((pad[:, :, 0] == float("inf")).all())
+    assert bool((pad[:, :, 1] == 0).all())
+    s = torch.tensor([-1e4, -3.0, 0.0, 5.0, 80.0])
+    p = torch.exp2(s[:, None] * (SCALE * LOG2E) - pad[:, :, 0].reshape(-1))
+    assert bool((p == 0).all())
 
 
 def test_attention_layer_flash_matches_einsum():
