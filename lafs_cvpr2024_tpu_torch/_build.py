@@ -43,7 +43,7 @@ _U = ctypes.c_uint
 # the dropout arguments of kernels 2-5: seed, keep threshold, 1/keep, on
 _DROP = (_U, _U, _F, _I)
 # exported C functions → their argument types (all return cudaError_t but
-# the block count and the error string)
+# the counts and the error string)
 _SIGNATURES = {
     # img, landmarks, out, B, H, W, C, N, P, img_bf16, lm_bf16, stream
     "lafs_patch_gather": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -54,8 +54,12 @@ _SIGNATURES = {
     # T, D, H, eps, *_DROP, stream
     "lafs_fused_ln_mlp_bwd_bf16": (_P,) * 14 + (_I, _I, _I, _F) + _DROP + (_P,),
     "lafs_fused_ln_mlp_bwd_f32": (_P,) * 14 + (_I, _I, _I, _F) + _DROP + (_P,),
-    # T → rows of the (blocks, D) dγ/dβ partial buffers of kernels 3 and 9
+    # T → rows of the (blocks, D) dγ/dβ partial buffers of kernel 9
     "lafs_row_blocks": (_I,),
+    # T, D, H, bf16 → rows of kernel 3's dγ/dβ partial buffers
+    "lafs_ln_mlp_bwd_partial_rows": (_I,) * 4,
+    # cluster size, threads, shared memory → clusters the card co-schedules
+    "lafs_max_active_clusters": (_I,) * 3,
     # x, w1t, b1, w2t, b2, y, u (or null), T, D, H, *_DROP, stream
     "lafs_fused_mlp_bf16": (_P,) * 7 + (_I,) * 3 + _DROP + (_P,),
     "lafs_fused_mlp_f32": (_P,) * 7 + (_I,) * 3 + _DROP + (_P,),

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's redesigned kernels, as
 // thin inline-PTX wrappers: mbarriers, TMA tile loads and stores through a
 // CUtensorMap, wgmma descriptors and products, the cluster helpers and
-// setmaxnreg. Kernels 6 and 7 (fused_attention*.cu), 11a
-// (flash_attention.cu) and row 10 (mlp_fusion.cu) use them.
+// setmaxnreg. Kernels 2 and 3 (fused_ln_mlp*.cu, through
+// fused_ln_mlp_sm90.cuh), 6 and 7 (fused_attention*.cu), 11a-c
+// (flash_attention*.cu) and row 10 (mlp_fusion.cu) use them.
 //
 // Layout convention: every shared-memory tile is a TMA box whose rows are
 // exactly 128 bytes (64 bf16), loaded with CU_TENSOR_MAP_SWIZZLE_128B into

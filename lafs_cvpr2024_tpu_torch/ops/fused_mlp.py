@@ -13,6 +13,9 @@ Four kernels carry them on the card, each beside its plain PyTorch version
 - kernel 3, ``csrc/fused_ln_mlp_bwd.cu``, its backward (replaces
   ``_ln_bwd_kernel``): regenerated masks, GELU′, ``do·W2``, ``du·W1`` and the
   LayerNorm backward, with per-block dγ/dβ partial sums;
+  both in bf16 at D = 768 with H a multiple of 256 (every full-width path)
+  in their Hopper design (``csrc/fused_ln_mlp_sm90.cuh``), other widths
+  and fp32 in their first, as the C entry points choose;
 - kernel 4, ``csrc/fused_mlp.cu``, the forward without the LayerNorm
   (replaces ``_fwd_kernel``; ``mlp_impl='fused'``);
 - kernel 5, ``csrc/fused_mlp_bwd.cu``, its backward (replaces
@@ -164,6 +167,13 @@ def _check(what, x, ops, d, hdim, max_d):
             f"got D={d}, H={hdim}")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous ``t`` at a 16-byte-aligned address, as kernels 2 and 3's
+    Hopper design reads it (TMA tiles, 16-byte loads): ``t`` itself, or a
+    copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _drop_args(rate: float, seed: int):
     """(seed, threshold, 1/keep, on) as the C interface takes them."""
     if not 0.0 <= rate < 1.0:
@@ -177,8 +187,9 @@ def fused_ln_mlp_fwd_cuda(x, g, bt, w1, b1, w2, b2, *, eps: float = 1e-5,
                           rate: float = 0.0, seed: int = 0,
                           save_u: bool = False):
     """Launch kernel 2 on x (T, D) on its CUDA device (every operand in x's
-    dtype, D a multiple of 128 up to 768, H a multiple of 128). Returns
-    ``(y, u)`` as :func:`fused_ln_mlp_fwd_plain`."""
+    dtype, D a multiple of 128 up to 768, H a multiple of 128; bf16 at D =
+    768 with H a multiple of 256 in the Hopper design). Returns ``(y, u)``
+    as :func:`fused_ln_mlp_fwd_plain`."""
     d, hdim = x.shape[-1], w1.shape[0]
     ops = (g, bt, w1, b1, w2, b2)
     _check("fused_ln_mlp_fwd_cuda", x, ops, d, hdim, 768)
@@ -194,6 +205,7 @@ def fused_ln_mlp_fwd_cuda(x, g, bt, w1, b1, w2, b2, *, eps: float = 1e-5,
     if w1.data_ptr() % 32 or w2.data_ptr() % 32:
         raise ValueError("fused_ln_mlp_fwd_cuda: the weights must be 32-byte "
                          "aligned (tensor-core fragment loads)")
+    x, g, bt, b1, b2 = (_aligned(v) for v in (x, g, bt, b1, b2))
     t = x.shape[0]
     y = torch.empty_like(x)
     u = x.new_empty((t, hdim)) if save_u else None
@@ -266,9 +278,11 @@ def fused_ln_mlp_bwd_plain(x, u, dy, g, bt, w1, w2, *, eps: float = 1e-5,
 
 def fused_ln_mlp_bwd_cuda(x, u, dy, g, bt, w1, w2, *, eps: float = 1e-5,
                           rate: float = 0.0, seed: int = 0):
-    """Launch kernel 3 on its CUDA device; returns what
+    """Launch kernel 3 on its CUDA device (bf16 at D = 768 with H a
+    multiple of 256 in the Hopper design); returns what
     :func:`fused_ln_mlp_bwd_plain` returns, dγ/dβ summed from the kernel's
-    per-block partials (a deterministic ``.sum(0)``, no atomics)."""
+    per-block partials (a deterministic ``.sum(0)``, no atomics; the
+    library says how many)."""
     d, hdim = x.shape[-1], w1.shape[0]
     ops = (u, dy, g, bt, w1, w2)
     _check("fused_ln_mlp_bwd_cuda", x, ops, d, hdim, 768)
@@ -284,8 +298,10 @@ def fused_ln_mlp_bwd_cuda(x, u, dy, g, bt, w1, w2, *, eps: float = 1e-5,
     if w1.data_ptr() % 32 or w2.data_ptr() % 32:
         raise ValueError("fused_ln_mlp_bwd_cuda: the weights must be 32-byte "
                          "aligned (tensor-core fragment loads)")
+    x, u, dy, g, bt = (_aligned(v) for v in (x, u, dy, g, bt))
     lib = _build.library()
-    blocks = lib.lafs_row_blocks(t)
+    blocks = lib.lafs_ln_mlp_bwd_partial_rows(t, d, hdim,
+                                              int(x.dtype == torch.bfloat16))
     do, xn, dx = (torch.empty_like(x) for _ in range(3))
     hd, du = torch.empty_like(u), torch.empty_like(u)
     dgp = torch.empty((max(blocks, 1), d), device=x.device, dtype=torch.float32)

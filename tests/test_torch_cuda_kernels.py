@@ -11,8 +11,12 @@ Tolerances: the gather agrees to 1e-5 in fp32 and to one bf16 ulp in bf16
 (the same four-corner sum, contracted to FMAs by nvcc); the MLP forward
 and backward to 1e-4 relative in fp32 and 2e-2 in bf16 (both accumulate in
 fp32 in another order, and a 1-ulp flip of a bf16 intermediate moves the
-output), with and without the LayerNorm (kernels 2-5), and so do the
-LN-fused linear's forward and backward (kernels 8 and 9) at any output
+output), with and without the LayerNorm (kernels 2-5; 2 and 3 also in
+their Hopper design, bf16 at D 768 and H 256, 512 and 2048, at T from 1
+to 333 across the edges of its 64-row cluster and of the hash's 128-row
+tile, every (rate, u saved) instance, one dγ/dβ partial row a cluster,
+the profiler naming the Hopper instances on that path and only there),
+and so do the LN-fused linear's forward and backward (kernels 8 and 9) at any output
 width O. Dropout masks are the same bits: the kernels and the plain
 versions hash the same keys. The fused attention forward and backward
 agree to 1e-5 relative in fp32 and 2e-2 in bf16 (fp32 logits and softmax in
@@ -241,6 +245,94 @@ def test_fused_autograd_function_launches_both_kernels(cuda):
         grads.append([t.grad.cpu() for t in leaves])
     for a, b in zip(*grads):
         assert _rel(a, b) <= 1e-4
+
+
+# Kernels 2 and 3 in their Hopper design (bf16, D = 768, H a multiple of
+# 256): T at the edges of the 64-row cluster tile and of the hash's 128-row
+# tile, and a ragged T
+SM90_T = [1, 63, 64, 65, 127, 128, 129, 333]
+
+
+@pytest.mark.parametrize("h", [256, 512, 2048])
+@pytest.mark.parametrize("t", SM90_T)
+@pytest.mark.parametrize("rate,save_u", [(0.0, False), (0.0, True),
+                                         (0.1, False), (0.1, True)])
+def test_fused_ln_mlp_hopper_design_matches_plain(cuda, h, t, rate, save_u):
+    """Kernel 2's Hopper design: y (and u) within 2e-2 of the plain
+    version, finite, and the output mask its bits."""
+    ops = _mlp_operands(cuda, torch.bfloat16, t, 768, h, seed=t + h)
+    kw = dict(rate=rate, seed=4321, save_u=save_u)
+    got, u = fused_ln_mlp_fwd_cuda(*ops, **kw)
+    want, u_want = fused_ln_mlp_fwd_plain(*ops, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (t, 768) and bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= 2e-2
+    if save_u:
+        assert u.shape == (t, h) and _rel(u, u_want) <= 2e-2
+    else:
+        assert u is None
+    if rate:
+        m2 = dropout_mask(t, 768, 4321, rate, 1, torch.bfloat16, cuda)
+        assert torch.equal(got != 0, m2) and torch.equal(want != 0, m2)
+
+
+@pytest.mark.parametrize("h", [256, 512, 2048])
+@pytest.mark.parametrize("t", SM90_T)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_ln_mlp_bwd_hopper_design_matches_plain(cuda, h, t, rate):
+    """Kernel 3's Hopper design: every output within 2e-2 of the plain
+    version and finite, both masks bit for bit, one dγ/dβ partial row a
+    64-row cluster."""
+    x, g, bt, w1, b1, w2, b2 = _mlp_operands(cuda, torch.bfloat16, t, 768, h,
+                                             seed=t + h + 1)
+    _, u = fused_ln_mlp_fwd_plain(x, g, bt, w1, b1, w2, b2, save_u=True)
+    dy = torch.randn(t, 768, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(t)
+                     ).to(torch.bfloat16)
+    got = fused_ln_mlp_bwd_cuda(x, u, dy, g, bt, w1, w2, rate=rate, seed=66)
+    want = fused_ln_mlp_bwd_plain(x, u, dy, g, bt, w1, w2, rate=rate, seed=66)
+    torch.cuda.synchronize()
+    names = ("do", "hd", "du", "xn", "dx", "dg", "dbt")
+    for name, a, b in zip(names, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) <= 2e-2, name
+    if rate:
+        m1 = dropout_mask(t, h, 66, rate, 0, torch.bfloat16, cuda)
+        m2 = dropout_mask(t, 768, 66, rate, 1, torch.bfloat16, cuda)
+        h0 = torch.nn.functional.gelu(u.float()).to(torch.bfloat16)
+        assert torch.equal(got[1] != 0, m1 & (h0 != 0))
+        assert torch.equal(got[0] != 0, m2 & (dy != 0))
+    lib = _build.library()
+    assert lib.lafs_ln_mlp_bwd_partial_rows(t, 768, h, 1) == -(-t // 64)
+    assert lib.lafs_ln_mlp_bwd_partial_rows(t, 768, h, 0) == -(-t // 32)
+    assert lib.lafs_ln_mlp_bwd_partial_rows(t, 128, 256, 1) == -(-t // 32)
+
+
+def test_fused_ln_mlp_runs_the_hopper_design_only_where_it_takes(cuda):
+    """By the profiler's kernel names: bf16 at D 768, H 2048 launches the
+    Hopper instances, (128, 256) and fp32 the first design's, and no call
+    launches both."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def names(dtype, d, h):
+        x, g, bt, w1, b1, w2, b2 = _mlp_operands(cuda, dtype, 130, d, h)
+        leaves = [a.requires_grad_() for a in (x, g, bt, w1, b1, w2, b2)]
+        dy = torch.ones(130, d, device=cuda, dtype=dtype)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            y = fused_ln_mlp(*leaves, rate=0.1, seed=5)
+            torch.autograd.grad(y, leaves, dy)
+            torch.cuda.synchronize()
+        return {e.key for e in prof.key_averages() if "ln_mlp" in e.key}
+
+    hop = names(torch.bfloat16, 768, 2048)
+    assert any("ln_mlp_fwd_sm90" in k for k in hop)
+    assert any("ln_mlp_bwd_sm90" in k for k in hop)
+    assert not any("ln_mlp_bf16_kernel" in k or "ln_mlp_bwd_bf16_kernel" in k
+                   for k in hop)
+    for dtype, d, h in ((torch.bfloat16, 128, 256), (torch.float32, 768, 2048)):
+        first = names(dtype, d, h)
+        assert first and not any("sm90" in k for k in first)
 
 
 def test_fused_ln_mlp_kernel_refuses_widths_it_does_not_take(cuda):
