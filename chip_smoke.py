@@ -14,9 +14,9 @@ one line each:
 
 1. the device (and ``nvidia-smi``'s name and power limit), the kernels'
    build and ptxas's registers and spills of the Hopper kernels (2 and 3
-   at D 768, each template instance, 6 and 7's two passes, 11a-c, all
-   bf16, and row 10; a spill, a missing kernel or a serialised wgmma,
-   ptxas's warning C7520, fails the run);
+   at D 768, each template instance, 6 and 7's two passes, 8 and 9 at D
+   768, 11a-c, all bf16, and row 10; a spill, a missing kernel or a
+   serialised wgmma, ptxas's warning C7520, fails the run);
 2. kernel 1 (patch gather) against its plain PyTorch version at
    (128, 112, 112, 3) images and 196 landmarks, including landmarks at and
    beyond every edge, in fp32 and bf16;
@@ -82,21 +82,30 @@ one line each:
     kernel, plain and cuBLAS dense-block forward and backward ms;
 13. kernels 8 and 9 (LayerNorm + the bias-free ``to_qkv``, forward and
     backward) against their plain versions at T = 128·197, D 768,
-    O = 2,112, and at a ragged T = 130 with O = 192, bf16 and fp32: y, xn,
-    dx, dγ and dβ within tolerance; kernel, plain and
-    ``F.linear(F.layer_norm(x), W)`` forward and autograd-backward ms;
+    O = 2,112, at a ragged T = 130 with O = 192, at the Hopper designs'
+    edges (T = 1, 65, 129; O = 8, 2,120) and in the first design at D 768
+    (T = 333, O = 100), bf16 and fp32: y, xn, dx, dγ and dβ within
+    tolerance; at the step's shape kernel ms by events and on the device,
+    plain ms, the first design's ms at O = 2,111 (the nearest width it
+    takes), ``F.linear(F.layer_norm(x), W)`` and its autograd backward,
+    and the whole ``FusedLNLinear`` backward (kernel 9 + dW, the
+    like-for-like pair of that autograd backward);
 14. the SimMIM step (``train/simmim.py``) at the ``cli/train_simmim.py``
     defaults: 128 uint8 112² images scaled on the card, landmark patches
     from a random frozen landmark CNN, mask ratio 0.6, dropout/emb-dropout/
     drop-path 0.1, bf16 compute and moments, clip 5.0, lr 1e-4, wd 0.05:
     2 warm-up and ``SIM_TIMED`` timed steps per configuration (kernel:
-    gather kernel, ``fused`` MLP, ``lnqkv`` attention; plain: ``gather``,
-    ``dense``, ``einsum``; imgs/s = 128 / step time), peak memory, the
-    five kernels' launches per step (1 / 12 / 12 / 12 / 12), loss finite,
-    the weights and the mask token moved; then one step of both
-    configurations at every rate 0 from the same state, tokens and mask:
-    loss within 1e-3 relative, every gradient leaf at cosine ≥ 0.999; and
-    one step of the grid variant (``use_landmarks=False``);
+    the port's ``SimMIMConfig`` default, gather kernel, ``fused`` MLP,
+    ``lnqkv`` attention; jax_cli: what the JAX CLI's defaults resolve to on
+    a TPU, gather kernel, ``fused_ln`` MLP, einsum attention; plain:
+    ``gather``, ``dense``, ``einsum``; imgs/s = 128 / step time), peak
+    memory, the kernels' launches per step (kernel: 1 / 12 / 12 / 12 / 12
+    of kernels 1, 4, 5, 8, 9; jax_cli: 1 / 12 / 12 of kernels 1, 2, 3),
+    loss finite, the weights and the mask token moved; then one step of
+    each kernel configuration and the plain one at every rate 0 from the
+    same state, tokens and mask: loss within 1e-3 relative, every gradient
+    leaf at cosine ≥ 0.999; and one step of the grid variant
+    (``use_landmarks=False``);
 15. kernels 11a-c (flash attention forward, dK/dV, dQ) against their plain
     versions at the SSL step's flash calls, globals (64, 11, 197, 64) and
     locals (256, 11, 37, 64), and at N = 17, 49, 65 (the 64-row tiles'
@@ -170,10 +179,13 @@ AdamW).
 The kernels' record gives each kernel's ``bound_ms``: the larger of the
 FLOPs its call does over the card's peak rate for the dtype and the bytes
 it must move (each input read once, each output written once) over the
-memory rate, from the shapes this run measured (``bound``). Kernels 2 and
-3 also carry their device time and their yardsticks: the dense block
+memory rate, from the shapes this run measured (``bound``). Kernels 2, 3,
+8 and 9 also carry their device time and their yardsticks: the dense block
 (kernel 2, and its served shape from phase 3), kernel 3 plus the weight
-gradients beside the dense block's autograd backward (kernel 3).
+gradients beside the dense block's autograd backward (kernel 3),
+``F.linear(F.layer_norm(x), W)`` (kernel 8) and kernel 9 plus dW beside
+that pair's autograd backward (kernel 9), and 8 and 9 the first design's
+time at O = 2,111.
 """
 
 from __future__ import annotations
@@ -239,6 +251,7 @@ from lafs_cvpr2024_tpu_torch.ops.fused_attention import (
     fused_attention_plain,
 )
 from lafs_cvpr2024_tpu_torch.ops.fused_ln_linear import (
+    FusedLNLinear,
     fused_ln_linear_bwd_cuda,
     fused_ln_linear_bwd_plain,
     fused_ln_linear_fwd_cuda,
@@ -374,10 +387,26 @@ ATTN_SCALE = 768 ** -0.5               # the model-dim scale of Attention
 SIM_BATCH = 128                        # cli/train_simmim.py's batch a chip
 SIM_T = SIM_BATCH * 197                # MLP and QKV rows of one SimMIM step
 SIM_TIMED = 5                          # timed SimMIM steps per config
+# (gather, MLP, attention): the port's SimMIMConfig default (kernels 1, 4,
+# 5, 8, 9), cli/train_simmim.py's defaults as the JAX CLI resolves them on
+# a TPU (--mlp-impl auto → fused_ln, --attn-impl einsum: kernels 1-3;
+# lafs_cvpr2024_tpu/utils/config.py:48-56), and plain PyTorch
 SIM_CONFIGS = {"kernel": ("kernel", "fused", "lnqkv"),
+               "jax_cli": ("kernel", "fused_ln", "einsum"),
                "plain": ("gather", "dense", "einsum")}
 SIM_ARGS = dict(lr=1e-4, wd=0.05)      # cli/train_simmim.py's defaults
 QKV_O = 3 * 11 * 64                    # to_qkv width of Part-fViT-B: 2,112
+# kernels 8 and 9: the SimMIM step's (T, O), a ragged shape, the Hopper
+# designs' edges (T across their 64-row tiles; O below, at and past kernel
+# 8's 192-column tile and kernel 9's 64-wide chunk) and the first design at
+# D 768 (O not a multiple of 8); their names in the profiler; the nearest
+# width to 2,112 that the first design takes, timed beside the new ones
+LN_LINEAR_SHAPES = ((SIM_T, QKV_O), (130, 192), (1, 8), (65, 2120),
+                    (129, QKV_O), (333, 100))
+LN_LINEAR_KEYS = {
+    torch.bfloat16: ("ln_linear_fwd_sm90", "ln_linear_bwd_sm90"),
+    torch.float32: ("ln_linear_fwd_f32_kernel", "ln_linear_bwd_f32_kernel")}
+FIRST_O = QKV_O - 1
 # the SSL CLI slice: (B, H, N) of the step's flash calls (2 globals of 197
 # tokens, 8 locals of 37), 11a's tail widths (17, 49: one key block cut to
 # 32 and 64; 65: a whole block and a tail of 16), ragged and long N, and
@@ -452,6 +481,8 @@ SM90_KERNELS = {"fused_ln_mlp (2, bf16, D 768)": "ln_mlp_fwd_sm90",
                 "flash_attention (11a, bf16)": "flash_fwd_bf16",
                 "flash_attention_bwd dkv (11b, bf16)": "flash_bwd_dkv_bf16",
                 "flash_attention_bwd dq (11c, bf16)": "flash_bwd_dq_bf16",
+                "fused_ln_linear (8, bf16, D 768)": "ln_linear_fwd_sm90",
+                "fused_ln_linear_bwd (9, bf16, D 768)": "ln_linear_bwd_sm90",
                 "mlp_fusion (row 10)": "mlp_fusion_bf16_kernel"}
 # the names of the kernels' template arguments, in order: a bool's (false,
 # true) labels, or an int's prefix; a kernel not listed has (DROP,)
@@ -1287,11 +1318,15 @@ def ln_linear_arrays(rng, t: int, d: int, o: int):
 
 def phase_ln_linear(dev, seed: int) -> dict:
     """Kernels 8 and 9 against their plain versions at the SimMIM step's
-    T and to_qkv width, and at a ragged shape; times at the step's shape
-    beside F.linear(F.layer_norm(x), W) and its autograd backward."""
+    T and to_qkv width, at a ragged shape, at the Hopper designs' edges and
+    in the first design at D 768; times at the step's shape: kernel (events
+    and device), plain, the first design at O = 2,111 (the nearest width it
+    takes), F.linear(F.layer_norm(x), W) and, for kernel 9, the whole
+    FusedLNLinear backward (kernel 9 + dW) beside that pair's autograd
+    backward."""
     rng = np.random.default_rng(seed + 21)
     out = {}
-    for t, o in ((SIM_T, QKV_O), (130, 192)):
+    for t, o in LN_LINEAR_SHAPES:
         arrs = ln_linear_arrays(rng, t, 768, o)
         for dtype, tol in TOLS:
             x, g, bt, w, dy = on_card(arrs, dev, dtype)
@@ -1308,39 +1343,8 @@ def phase_ln_linear(dev, seed: int) -> dict:
             name = dtype_name(dtype)
             times = ""
             if t == SIM_T:
-                ops = (x, g, bt, w)
-                ms = cuda_ms(lambda: fused_ln_linear_fwd_cuda(*ops), iters=10)
-                plain_ms = cuda_ms(lambda: fused_ln_linear_fwd_plain(*ops),
-                                   iters=5)
-                bwd_ms = cuda_ms(lambda: fused_ln_linear_bwd_cuda(
-                    x, dy, g, bt, w), iters=10)
-                bwd_plain_ms = cuda_ms(lambda: fused_ln_linear_bwd_plain(
-                    x, dy, g, bt, w), iters=5)
-                leaves = [a.detach().requires_grad_() for a in ops]
-
-                def dense(xx, gg, bb, ww):
-                    return F.linear(F.layer_norm(xx, (768,), gg, bb, 1e-5), ww)
-                with torch.no_grad():
-                    dense_ms = cuda_ms(lambda: dense(*ops), iters=10)
-                yd = dense(*leaves)
-                dense_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-                    yd, leaves, dy, retain_graph=True), iters=10)
-                del yd
-                out[name] = dict(
-                    fwd=dict(max_abs_err=errs["y"][0], ms=ms,
-                             plain_ms=plain_ms, dense_ms=dense_ms,
-                             library_ms=None,
-                             **bound(2 * t * 768 * o, nbytes(*ops, y), dtype)),
-                    bwd=dict(max_abs_err=max(e for n, (e, _) in errs.items()
-                                             if n != "y"),
-                             ms=bwd_ms, plain_ms=bwd_plain_ms,
-                             dense_ms=dense_bwd_ms, library_ms=None,
-                             **bound(2 * t * o * 768,
-                                     nbytes(x, dy, g, bt, w, *got), dtype)))
-                times = (f" fwd kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                         f"layer_norm+linear_ms={dense_ms:.4f}; bwd kernel_ms="
-                         f"{bwd_ms:.4f} plain_ms={bwd_plain_ms:.4f} "
-                         f"layer_norm+linear_autograd_ms={dense_bwd_ms:.4f}")
+                out[name], times = ln_linear_times(x, g, bt, w, dy, y, got,
+                                                   errs, dtype)
             print(f"phase 13 fused_ln_linear T={t} D=768 O={o} {name}: rel_err "
                   + " ".join(f"{n}={r:.2e}" for n, (_, r) in errs.items())
                   + f" (tol {tol:g}){times} {'ok' if ok else 'FAIL'}",
@@ -1350,10 +1354,69 @@ def phase_ln_linear(dev, seed: int) -> dict:
     return out
 
 
+def ln_linear_times(x, g, bt, w, dy, y, got, errs, dtype):
+    """Phase 13's times at the SimMIM step's shape: the kernels' record
+    entries and the printed line."""
+    t, o = dy.shape
+    ops = (x, g, bt, w)
+    keys = LN_LINEAR_KEYS[dtype]
+    ms = cuda_ms(lambda: fused_ln_linear_fwd_cuda(*ops), iters=10)
+    dev_ms = device_ms(lambda: fused_ln_linear_fwd_cuda(*ops),
+                       [keys[0]])[keys[0]][0]
+    plain_ms = cuda_ms(lambda: fused_ln_linear_fwd_plain(*ops), iters=5)
+    bwd_ms = cuda_ms(lambda: fused_ln_linear_bwd_cuda(x, dy, g, bt, w),
+                     iters=10)
+    bwd_dev_ms = device_ms(lambda: fused_ln_linear_bwd_cuda(x, dy, g, bt, w),
+                           [keys[1]])[keys[1]][0]
+    bwd_plain_ms = cuda_ms(lambda: fused_ln_linear_bwd_plain(x, dy, g, bt, w),
+                           iters=5)
+    # the first design at the nearest width it takes (O % 8 != 0)
+    w1, dy1 = w[:FIRST_O].contiguous(), dy[:, :FIRST_O].contiguous()
+    first_ms = cuda_ms(lambda: fused_ln_linear_fwd_cuda(x, g, bt, w1),
+                       iters=10)
+    first_bwd_ms = cuda_ms(lambda: fused_ln_linear_bwd_cuda(
+        x, dy1, g, bt, w1), iters=10)
+    leaves = [a.detach().requires_grad_() for a in ops]
+
+    def dense(xx, gg, bb, ww):
+        return F.linear(F.layer_norm(xx, (768,), gg, bb, 1e-5), ww)
+    with torch.no_grad():
+        dense_ms = cuda_ms(lambda: dense(*ops), iters=10)
+    yd = dense(*leaves)
+    dense_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        yd, leaves, dy, retain_graph=True), iters=10)
+    # the whole fused backward: kernel 9 + dW = dyᵀ·xn
+    yf = FusedLNLinear.apply(*leaves, 1e-5)
+    fused_ms = cuda_ms(lambda: torch.autograd.grad(
+        yf, leaves, dy, retain_graph=True), iters=10)
+    del yd, yf
+    rec = dict(
+        fwd=dict(max_abs_err=errs["y"][0], ms=ms, device_ms=dev_ms,
+                 plain_ms=plain_ms, first_design_ms=first_ms,
+                 dense_ms=dense_ms, library_ms=None,
+                 **bound(2 * t * 768 * o, nbytes(*ops, y), dtype)),
+        bwd=dict(max_abs_err=max(e for n, (e, _) in errs.items() if n != "y"),
+                 ms=bwd_ms, device_ms=bwd_dev_ms, plain_ms=bwd_plain_ms,
+                 first_design_ms=first_bwd_ms, kernel_plus_wgrad_ms=fused_ms,
+                 dense_ms=dense_bwd_ms, library_ms=None,
+                 **bound(2 * t * o * 768, nbytes(x, dy, g, bt, w, *got),
+                         dtype)))
+    line = (f" fwd kernel_ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms="
+            f"{plain_ms:.4f} first_design_ms(O={FIRST_O})={first_ms:.4f} "
+            f"layer_norm+linear_ms={dense_ms:.4f} bound_ms="
+            f"{rec['fwd']['bound_ms']:.4f}; bwd kernel_ms={bwd_ms:.4f} "
+            f"device_ms={bwd_dev_ms:.4f} plain_ms={bwd_plain_ms:.4f} "
+            f"first_design_ms(O={FIRST_O})={first_bwd_ms:.4f} "
+            f"kernel_plus_wgrad_ms={fused_ms:.4f} "
+            f"layer_norm+linear_autograd_ms={dense_bwd_ms:.4f} bound_ms="
+            f"{rec['bwd']['bound_ms']:.4f}")
+    return rec, line
+
+
 def sim_cfg(config: str, rate: float = 0.1,
             use_landmarks: bool = True) -> SimMIMConfig:
-    """``cli/train_simmim.py``'s defaults on one GPU in either
-    configuration; ``rate`` for dropout, embedding dropout and drop
+    """``cli/train_simmim.py``'s defaults on one GPU in one of
+    ``SIM_CONFIGS``; ``rate`` for dropout, embedding dropout and drop
     path."""
     gather_impl, mlp_impl, attn_impl = SIM_CONFIGS[config]
     model = PartFViTConfig(with_land=False, loss_type="None", num_classes=0,
@@ -1382,8 +1445,12 @@ def phase_simmim(dev, seed: int) -> dict:
     n_params = sum(p.numel() for p in state0.params.values())
     steps = 2 + SIM_TIMED
     depth = cfg.model.depth
-    want = {"patch_gather": 1, "fused_mlp": depth, "fused_mlp_bwd": depth,
-            "fused_ln_linear": depth, "fused_ln_linear_bwd": depth}
+    want = {"kernel": {"patch_gather": 1, "fused_mlp": depth,
+                       "fused_mlp_bwd": depth, "fused_ln_linear": depth,
+                       "fused_ln_linear_bwd": depth},
+            "jax_cli": {"patch_gather": 1, "fused_ln_mlp": depth,
+                        "fused_ln_mlp_bwd": depth},
+            "plain": {}}
     keys = ("backbone.mask_token",
             "backbone.transformer.layers.0.0.fn.fn.to_qkv.weight")
     out = dict(state0=state0, land=land, images=images)
@@ -1405,16 +1472,15 @@ def phase_simmim(dev, seed: int) -> dict:
         per_step = {k: v / steps for k, v in launches.items() if v}
         if config == "kernel":
             out["launches"] = launches
-            launches_ok = per_step == want
-        else:
-            launches_ok = not per_step  # the plain configuration: none
+        launches_ok = per_step == want[config]
         moved = all(not torch.equal(state.params[k], state0.params[k])
                     for k in keys)
         ok = (np.isfinite(loss) and moved and launches_ok
               and state.step == steps)
         out[config] = dict(step_ms=step_s * 1e3,
                            imgs_per_s=SIM_BATCH / step_s, loss=loss)
-        print(f"phase 14 simmim {config}: {n_params / 1e6:.1f} M params, "
+        print(f"phase 14 simmim {config} {'/'.join(SIM_CONFIGS[config])}: "
+              f"{n_params / 1e6:.1f} M params, "
               f"{SIM_BATCH} images a step, step_ms={step_s * 1e3:.2f} "
               f"imgs_per_s={SIM_BATCH / step_s:.1f} loss_after_{steps}_steps="
               f"{loss:.5f} mask_token_and_weights_moved={moved} peak_mem_gb="
@@ -1427,26 +1493,28 @@ def phase_simmim(dev, seed: int) -> dict:
 
 
 def phase_simmim_agree(dev, sim: dict) -> None:
-    """One step's loss and gradients, both configurations at every rate 0,
-    from the same state, tokens and mask; then one step of the grid
-    variant."""
+    """One step's loss and gradients, each kernel configuration against the
+    plain one at every rate 0, from the same state, tokens and mask; then
+    one step of the grid variant."""
     state0, land, images = sim["state0"], sim["land"], sim["images"]
     steps = {c: make_simmim_train_step(sim_cfg(c, 0.0)) for c in SIM_CONFIGS}
     s_mask, s_drop = sim_seeds(state0.seed, state0.step)
     tokens, mask = steps["kernel"].tokens_and_mask(land, images, s_mask)
-    res = {c: st.loss_and_grads(state0, tokens, mask, s_drop)
-           for c, st in steps.items()}
-    (lk, gk), (lp, gp) = res["kernel"], res["plain"]
-    rel = abs(lk.item() - lp.item()) / abs(lp.item())
-    cos = grad_cosines(gk, gp)
-    worst = min(cos, key=cos.get)
-    ok = rel <= 1e-3 and cos[worst] >= 0.999 and np.isfinite(lk.item())
-    print(f"phase 14 simmim kernel-vs-plain at rate 0: loss {lk.item():.6f} "
-          f"vs {lp.item():.6f} (rel {rel:.2e}, tol 1e-3); gradient cosine "
-          f"min {cos[worst]:.6f} ({worst}) over {len(cos)} leaves (tol "
-          f"0.999) {'ok' if ok else 'FAIL'}", flush=True)
-    require(ok, "SimMIM kernel and plain configurations disagree")
-    del res, gk, gp
+    lp, gp = steps["plain"].loss_and_grads(state0, tokens, mask, s_drop)
+    for config in ("kernel", "jax_cli"):
+        lk, gk = steps[config].loss_and_grads(state0, tokens, mask, s_drop)
+        rel = abs(lk.item() - lp.item()) / abs(lp.item())
+        cos = grad_cosines(gk, gp)
+        worst = min(cos, key=cos.get)
+        ok = rel <= 1e-3 and cos[worst] >= 0.999 and np.isfinite(lk.item())
+        print(f"phase 14 simmim {config}-vs-plain at rate 0: loss "
+              f"{lk.item():.6f} vs {lp.item():.6f} (rel {rel:.2e}, tol 1e-3);"
+              f" gradient cosine min {cos[worst]:.6f} ({worst}) over "
+              f"{len(cos)} leaves (tol 0.999) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        require(ok, f"SimMIM {config} and plain configurations disagree")
+        del gk
+    del gp
     grid = make_simmim_train_step(sim_cfg("kernel", use_landmarks=False))
     _build.LAUNCHES.clear()
     state, m = grid(state0, land, images, **SIM_ARGS)
@@ -1505,7 +1573,8 @@ def phase_simmim_profile(dev, sim: dict, path: str) -> None:
         require(busy > 0, f"the profiler saw no device time for SimMIM {config}")
         kinds = " ".join(f"{k}={v:.2f}" for k, v in by_kind(kernels, 1).items())
         part_txt = " ".join(f"{k}={v:.2f}" for k, v in parts.items())
-        print(f"phase P profile simmim {config}: wall_ms={wall:.3f} "
+        print(f"phase P profile simmim {config} "
+              f"{'/'.join(SIM_CONFIGS[config])}: wall_ms={wall:.3f} "
               f"busy_ms={busy:.3f} idle={1 - busy / wall:.3f}; parts_ms "
               f"{part_txt}; device_ms_by_kind {kinds} -> {path}", flush=True)
         del state
@@ -2547,12 +2616,6 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    # Start autograd's worker thread for the card before any profiler
-    # session: a cluster kernel launched first in a worker thread that was
-    # created after a torch.profiler session returned "invalid argument"
-    # (kernel 3 in phase 7; PERF.md §7), one started before it does not.
-    probe = torch.ones(1, device=dev, requires_grad=True)
-    (probe * 2).sum().backward()
     smi = card()
     print(f"phase 1 device: {torch.cuda.get_device_name(0)} "
           f"(count {torch.cuda.device_count()}); nvidia-smi: {smi}; "
@@ -2671,7 +2734,12 @@ def main(argv=None) -> int:
                               "bound_ms", "bound_by")}),
         "fused_ln_mlp_bwd": dict(
             device_ms=bwd["device_ms"], kernel_plus_wgrad_ms=bwd["fused_ms"],
-            dense_autograd_ms=bwd["dense_ms"])}
+            dense_autograd_ms=bwd["dense_ms"]),
+        "fused_ln_linear": {k: ln_linear["bfloat16"]["fwd"][k] for k in (
+            "device_ms", "first_design_ms", "dense_ms")},
+        "fused_ln_linear_bwd": {k: ln_linear["bfloat16"]["bwd"][k] for k in (
+            "device_ms", "first_design_ms", "kernel_plus_wgrad_ms",
+            "dense_ms")}}
     record = {"kernels": [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=(sim["launches"].get(name)

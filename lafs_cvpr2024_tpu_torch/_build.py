@@ -54,10 +54,10 @@ _SIGNATURES = {
     # T, D, H, eps, *_DROP, stream
     "lafs_fused_ln_mlp_bwd_bf16": (_P,) * 14 + (_I, _I, _I, _F) + _DROP + (_P,),
     "lafs_fused_ln_mlp_bwd_f32": (_P,) * 14 + (_I, _I, _I, _F) + _DROP + (_P,),
-    # T → rows of the (blocks, D) dγ/dβ partial buffers of kernel 9
-    "lafs_row_blocks": (_I,),
     # T, D, H, bf16 → rows of kernel 3's dγ/dβ partial buffers
     "lafs_ln_mlp_bwd_partial_rows": (_I,) * 4,
+    # T, D, O, bf16 → rows of kernel 9's dγ/dβ partial buffers
+    "lafs_ln_linear_bwd_partial_rows": (_I,) * 4,
     # cluster size, threads, shared memory → clusters the card co-schedules
     "lafs_max_active_clusters": (_I,) * 3,
     # x, w1t, b1, w2t, b2, y, u (or null), T, D, H, *_DROP, stream

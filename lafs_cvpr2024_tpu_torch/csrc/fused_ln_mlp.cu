@@ -71,46 +71,6 @@ namespace hop {
 
 using namespace lafs_ln_mlp_sm90;
 
-// Normalises the (64, 768) x tile in place: warp w of the consumers takes
-// rows w, w + 8, ...; lane l the 16-byte chunks l, l + 32, l + 64 of each.
-__device__ __forceinline__ void ln_tile_in_place(unsigned char* xs,
-                                                 const bf16* __restrict__ g,
-                                                 const bf16* __restrict__ bt,
-                                                 float eps, int warp,
-                                                 int lane) {
-  float gv[24], bv[24];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const int c = lane + 32 * j;
-    unpack8(__ldg(reinterpret_cast<const uint4*>(g) + c), gv + 8 * j);
-    unpack8(__ldg(reinterpret_cast<const uint4*>(bt) + c), bv + 8 * j);
-  }
-  for (int r = warp; r < ROWS; r += 8) {
-    float f[24];
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      unpack8(*reinterpret_cast<const uint4*>(xs + tile_offset(r, lane + 32 * j)),
-              f + 8 * j);
-    float s = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 24; ++k) s += f[k];
-    const float mean = lafs_mlp::warp_sum(s) / (float)D;
-    float v = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 24; ++k) {
-      const float d = f[k] - mean;
-      v += d * d;
-    }
-    const float rstd = rsqrtf(lafs_mlp::warp_sum(v) / (float)D + eps);
-#pragma unroll
-    for (int k = 0; k < 24; ++k) f[k] = (f[k] - mean) * rstd * gv[k] + bv[k];
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      *reinterpret_cast<uint4*>(xs + tile_offset(r, lane + 32 * j)) =
-          pack8(f + 8 * j);
-  }
-}
-
 // Registers: 384 threads a launch get at most 168 each; the producer
 // warpgroup drops to 40 (setmaxnreg) so that the consumers rise to 232 for
 // their 96 + 32 accumulator registers.
@@ -281,7 +241,7 @@ cudaError_t launch(const void* x, const void* g, const void* bt,
       (err = lafs_ln_mlp_sm90_host::map2d(&mw2, w2t, H, D, SLAB)) != cudaSuccess)
     return err;
   return lafs_ln_mlp_sm90_host::launch(
-      ln_mlp_fwd_sm90<DROP, SAVE_U>, T_rows, s, mx, mw1, mw2,
+      ln_mlp_fwd_sm90<DROP, SAVE_U>, SMEM, T_rows, s, mx, mw1, mw2,
       static_cast<const bf16*>(g), static_cast<const bf16*>(bt),
       static_cast<const bf16*>(b1), static_cast<const bf16*>(b2),
       static_cast<bf16*>(y), static_cast<bf16*>(u), T_rows, H, eps, drop);

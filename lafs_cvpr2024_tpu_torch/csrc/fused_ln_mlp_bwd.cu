@@ -437,7 +437,7 @@ cudaError_t launch(const void* x, const void* u, const void* dy, const void* g,
       (err = lafs_ln_mlp_sm90_host::map2d(&mw1, w1t, D, H, 64)) != cudaSuccess)
     return err;
   return lafs_ln_mlp_sm90_host::launch(
-      ln_mlp_bwd_sm90<DROP>, T_rows, s, mdy, mw2, mw1,
+      ln_mlp_bwd_sm90<DROP>, SMEM, T_rows, s, mdy, mw2, mw1,
       static_cast<const bf16*>(x), static_cast<const bf16*>(u),
       static_cast<const bf16*>(g), static_cast<const bf16*>(bt),
       static_cast<bf16*>(do_), static_cast<bf16*>(hd), static_cast<bf16*>(du),
@@ -667,12 +667,6 @@ ln_mlp_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ u,
 
 }  // namespace
 
-// Rows of the (blocks, D) dγ/dβ partial buffers of kernel 9 and of kernel
-// 3's first design for T rows: both give each block ROWS rows.
-extern "C" int lafs_row_blocks(int T_rows) {
-  return T_rows > 0 ? (T_rows + ROWS - 1) / ROWS : 0;
-}
-
 // Rows of kernel 3's (rows, D) dγ/dβ partial buffers for T rows at these
 // widths: one a 64-row cluster in the Hopper design (bf16, D = 768, H a
 // multiple of 256), one a 32-row block in the first.
@@ -681,7 +675,7 @@ extern "C" int lafs_ln_mlp_bwd_partial_rows(int T_rows, int D, int H,
   if (T_rows <= 0) return 0;
   if (is_bf16 && lafs_ln_mlp_sm90::takes(D, H))
     return lafs_ln_mlp_sm90::clusters(T_rows);
-  return lafs_row_blocks(T_rows);
+  return (T_rows + ROWS - 1) / ROWS;
 }
 
 // Widths as kernel 2: D a multiple of 128 up to 768, H a multiple of 128

@@ -1,6 +1,8 @@
 // The Hopper design shared by kernels 2 (fused_ln_mlp.cu) and 3
 // (fused_ln_mlp_bwd.cu) in bf16 at D = 768 with H a multiple of 256: row
-// 10's cluster form (mlp_fusion.cu) on sm90.cuh.
+// 10's cluster form (mlp_fusion.cu) on sm90.cuh. Kernels 8 and 9
+// (fused_ln_linear*.cu) take its row tile, LayerNorm, layout helpers and
+// launch.
 //
 // A cluster of 2 CTAs owns ROWS = 64 token rows; CTA r owns the output
 // columns [384r, 384r + 384). Each CTA has two consumer warpgroups, each
@@ -41,8 +43,13 @@ constexpr int SMEM = BAR_OFF + 64 + 1024;      // + alignment to 1024 bytes
 static_assert(STAGE == (COLS / 64) * BOX, "a stage holds six 64 x 64 boxes");
 static_assert(4 * ROWS * 2 * 4 <= (HC / 64) * BOX, "row sums fit in h");
 
-// Whether the design takes these widths (bf16 is the caller's choice).
+// Whether the design takes these widths (bf16 is the caller's choice):
+// kernels 2 and 3 at hidden width H, kernels 8 and 9 at output width O (a
+// multiple of 8: 16-byte rows of dy for TMA).
 inline bool takes(int Dm, int H) { return Dm == D && H > 0 && H % HC == 0; }
+inline bool takes_linear(int Dm, int O) {
+  return Dm == D && O > 0 && O % 8 == 0;
+}
 
 inline int clusters(int T_rows) { return (T_rows + ROWS - 1) / ROWS; }
 
@@ -113,6 +120,47 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
                     pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
 }
 
+// Normalises the (64, 768) x tile in place (kernels 2 and 8): warp w of the
+// consumers takes rows w, w + 8, ...; lane l the 16-byte chunks l, l + 32,
+// l + 64 of each (fp32 two-pass statistics, xn rounded to bf16).
+__device__ __forceinline__ void ln_tile_in_place(unsigned char* xs,
+                                                 const bf16* __restrict__ g,
+                                                 const bf16* __restrict__ bt,
+                                                 float eps, int warp,
+                                                 int lane) {
+  float gv[24], bv[24];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int c = lane + 32 * j;
+    unpack8(__ldg(reinterpret_cast<const uint4*>(g) + c), gv + 8 * j);
+    unpack8(__ldg(reinterpret_cast<const uint4*>(bt) + c), bv + 8 * j);
+  }
+  for (int r = warp; r < ROWS; r += 8) {
+    float f[24];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      unpack8(*reinterpret_cast<const uint4*>(xs + tile_offset(r, lane + 32 * j)),
+              f + 8 * j);
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 24; ++k) s += f[k];
+    const float mean = lafs_mlp::warp_sum(s) / (float)D;
+    float v = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 24; ++k) {
+      const float d = f[k] - mean;
+      v += d * d;
+    }
+    const float rstd = rsqrtf(lafs_mlp::warp_sum(v) / (float)D + eps);
+#pragma unroll
+    for (int k = 0; k < 24; ++k) f[k] = (f[k] - mean) * rstd * gv[k] + bv[k];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      *reinterpret_cast<uint4*>(xs + tile_offset(r, lane + 32 * j)) =
+          pack8(f + 8 * j);
+  }
+}
+
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
@@ -144,15 +192,16 @@ inline cudaError_t map2d(CUtensorMap* m, const void* p, int cols, int rows,
   return lafs_sm90_host::make_map(m, p, 2, dims, strides, box);
 }
 
-// One launch of a 2-CTA-cluster kernel over ceil(T / 64) clusters.
+// One launch of a 2-CTA-cluster kernel with `smem` bytes of dynamic shared
+// memory a CTA over ceil(T / 64) clusters.
 template <typename... P, typename... A>
-cudaError_t launch(void (*kernel)(P...), int T_rows, cudaStream_t s,
+cudaError_t launch(void (*kernel)(P...), int smem, int T_rows, cudaStream_t s,
                    A... args) {
   using namespace lafs_ln_mlp_sm90;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<2 * clusters(T_rows), THREADS, SMEM, s>>>(args...);
+  kernel<<<2 * clusters(T_rows), THREADS, smem, s>>>(args...);
   return cudaGetLastError();
 }
 

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks for the port's redesigned kernels, as
 // thin inline-PTX wrappers: mbarriers, TMA tile loads and stores through a
 // CUtensorMap, wgmma descriptors and products, the cluster helpers and
-// setmaxnreg. Kernels 2 and 3 (fused_ln_mlp*.cu, through
-// fused_ln_mlp_sm90.cuh), 6 and 7 (fused_attention*.cu), 11a-c
-// (flash_attention*.cu) and row 10 (mlp_fusion.cu) use them.
+// setmaxnreg. Kernels 2 and 3 (fused_ln_mlp*.cu) and 8 and 9
+// (fused_ln_linear*.cu), through fused_ln_mlp_sm90.cuh, 6 and 7
+// (fused_attention*.cu), 11a-c (flash_attention*.cu) and row 10
+// (mlp_fusion.cu) use them.
 //
 // Layout convention: every shared-memory tile is a TMA box whose rows are
 // exactly 128 bytes (64 bf16), loaded with CU_TENSOR_MAP_SWIZZLE_128B into
@@ -322,6 +323,30 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
 }
 
 template <int TB>
+__device__ __forceinline__ void wgmma_ss_n96(float* d, uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, %51;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
 __device__ __forceinline__ void wgmma_ss_n192(float* d, uint64_t da, uint64_t db,
                                               int scale_d) {
   asm volatile(
@@ -383,12 +408,14 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t (&a)[4], u
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
                                          int scale_d) {
-  static_assert(N == 16 || N == 32 || N == 48 || N == 64 || N == 192,
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64 || N == 96 ||
+                    N == 192,
                 "wgmma_ss: a width this header has no wrapper for");
   if constexpr (N == 16) wgmma_ss_n16<TB>(d, da, db, scale_d);
   if constexpr (N == 32) wgmma_ss_n32<TB>(d, da, db, scale_d);
   if constexpr (N == 48) wgmma_ss_n48<TB>(d, da, db, scale_d);
   if constexpr (N == 64) wgmma_ss_n64<TB>(d, da, db, scale_d);
+  if constexpr (N == 96) wgmma_ss_n96<TB>(d, da, db, scale_d);
   if constexpr (N == 192) wgmma_ss_n192<TB>(d, da, db, scale_d);
 }
 
@@ -439,30 +466,44 @@ __device__ __forceinline__ void pack_a(const float* d, int k, uint32_t (&a)[4]) 
 
 namespace lafs_sm90_host {
 
-// cuTensorMapEncodeTiled is a driver-API function: it is looked up through
-// the runtime, so the library needs no -lcuda.
+// cuTensorMapEncodeTiled and cuCtxGetCurrent are driver-API functions:
+// they are looked up through the runtime, so the library needs no -lcuda.
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
                                 CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
+typedef CUresult (*CtxGetCurrent)(CUcontext*);
 
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
+// The driver function `name`, or null.
+inline void* driver_fn(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult q;
 #if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
+  cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &q);
 #else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
+  cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &q);
 #endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
+  return q == cudaDriverEntryPointSuccess ? p : nullptr;
+}
+
+// Makes a context current to the calling thread if none is. Encoding a
+// tensor map needs one (else CUDA_ERROR_INVALID_CONTEXT), and a thread
+// whose first CUDA call is this library's has none yet: the runtime binds
+// its device's primary context only at its first call that needs a
+// context. That thread is autograd's worker thread when the first node of
+// its first backward is one of the port's kernels (a torch.profiler
+// session before it does not matter).
+inline cudaError_t bind_context() {
+  static const CtxGetCurrent get =
+      reinterpret_cast<CtxGetCurrent>(driver_fn("cuCtxGetCurrent"));
+  CUcontext ctx = nullptr;
+  if (get != nullptr && get(&ctx) == CUDA_SUCCESS && ctx != nullptr)
+    return cudaSuccess;
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  return err != cudaSuccess ? err : cudaSetDevice(dev);
 }
 
 // A bf16 tensor map of `rank` dims (innermost first), byte strides of dims
@@ -472,8 +513,11 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
                             const unsigned long long* dims,
                             const unsigned long long* strides,
                             const unsigned* box) {
-  EncodeTiled fn = encode_tiled();
+  static const EncodeTiled fn =
+      reinterpret_cast<EncodeTiled>(driver_fn("cuTensorMapEncodeTiled"));
   if (fn == nullptr) return cudaErrorNotSupported;
+  const cudaError_t bound = bind_context();
+  if (bound != cudaSuccess) return bound;
   cuuint64_t d[5], s[4];
   cuuint32_t b[5], e[5];
   for (int i = 0; i < rank; ++i) {

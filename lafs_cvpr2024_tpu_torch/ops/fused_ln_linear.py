@@ -16,12 +16,15 @@ Two kernels carry it on the card, each beside its plain PyTorch version
   ``_fwd_kernel``);
 - kernel 9, ``csrc/fused_ln_linear_bwd.cu``, the backward (replaces
   ``_bwd_kernel``): the LN statistics recomputed, ``xn`` emitted,
-  ``dxn = dy·w`` and the LayerNorm backward, with per-block dγ/dβ partial
-  sums.
+  ``dxn = dy·w`` and the LayerNorm backward, with per-row-block dγ/dβ
+  partial sums.
 
-:class:`FusedLNLinear` joins them into an autograd function; ``dW = dyᵀ·xn``
-is a plain ``torch.matmul``, as the JAX package leaves it to XLA
-(``fused_ln_linear.py:179-191``).
+Both run their Hopper design (TMA, ``wgmma``) for bf16 at D = 768 with O a
+multiple of 8, and their first design otherwise; the C entry points choose,
+and the library says how many partial rows kernel 9 writes
+(``lafs_ln_linear_bwd_partial_rows``). :class:`FusedLNLinear` joins them
+into an autograd function; ``dW = dyᵀ·xn`` is a plain ``torch.matmul``, as
+the JAX package leaves it to XLA (``fused_ln_linear.py:179-191``).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .fused_mlp import _DTYPES, _ln_bwd, _ln_rows
+from .fused_mlp import _DTYPES, _aligned, _ln_bwd, _ln_rows
 
 
 def fused_ln_linear_fwd_plain(x, g, bt, w, *, eps: float = 1e-5):
@@ -57,8 +60,8 @@ def fused_ln_linear_bwd_plain(x, dy, g, bt, w, *, eps: float = 1e-5):
 
 def _checked(what, x, g, bt, w, dy=None):
     """x (T, D), g and bt (D,), w (O, D) and dy (T, O) on x's CUDA device
-    in x's dtype, D a multiple of 128 up to 768, w 16-byte aligned:
-    contiguous copies of (x, g, bt, w, dy)."""
+    in x's dtype, D a multiple of 128 up to 768: (x, g, bt, w, dy) as
+    :func:`_operands` hands them on."""
     ops = (g, bt, w) + (() if dy is None else (dy,))
     d = x.shape[-1]
     if not x.is_cuda or any(t.device != x.device for t in ops):
@@ -77,11 +80,15 @@ def _checked(what, x, g, bt, w, dy=None):
             f"{what}: shapes x {tuple(x.shape)}, w {tuple(w.shape)}, "
             f"{[tuple(t.shape) for t in ops]} do not form LN(x) @ wᵀ on "
             "(T, D) rows")
-    x, g, bt, w = (t.contiguous() for t in (x, g, bt, w))
-    if w.data_ptr() % 16:
-        raise ValueError(f"{what}: w must be 16-byte aligned (16-byte tile "
-                         "loads)")
-    return x, g, bt, w, (None if dy is None else dy.contiguous())
+    x, g, bt, w = _operands(x, g, bt, w)
+    return x, g, bt, w, (None if dy is None else _operands(dy)[0])
+
+
+def _operands(*tensors):
+    """Each tensor contiguous at a 16-byte-aligned address, as both designs
+    of kernels 8 and 9 read it (TMA tiles, 16-byte loads): itself, or a
+    copy."""
+    return tuple(_aligned(t.contiguous()) for t in tensors)
 
 
 def fused_ln_linear_fwd_cuda(x, g, bt, w, *, eps: float = 1e-5):
@@ -105,12 +112,13 @@ def fused_ln_linear_fwd_cuda(x, g, bt, w, *, eps: float = 1e-5):
 def fused_ln_linear_bwd_cuda(x, dy, g, bt, w, *, eps: float = 1e-5):
     """Launch kernel 9 on its CUDA device; returns what
     :func:`fused_ln_linear_bwd_plain` returns, dγ/dβ summed from the
-    kernel's per-block partials (a deterministic ``.sum(0)``, no
-    atomics)."""
+    kernel's per-row-block partials (a deterministic ``.sum(0)``, no
+    atomics; the library says how many)."""
     x, g, bt, w, dy = _checked("fused_ln_linear_bwd_cuda", x, g, bt, w, dy)
     t, d = x.shape
     lib = _build.library()
-    blocks = lib.lafs_row_blocks(t)
+    blocks = lib.lafs_ln_linear_bwd_partial_rows(
+        t, d, w.shape[0], int(x.dtype == torch.bfloat16))
     xn, dx = torch.empty_like(x), torch.empty_like(x)
     dgp = torch.empty((max(blocks, 1), d), device=x.device,
                       dtype=torch.float32)

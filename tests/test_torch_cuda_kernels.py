@@ -17,7 +17,12 @@ to 333 across the edges of its 64-row cluster and of the hash's 128-row
 tile, every (rate, u saved) instance, one dγ/dβ partial row a cluster,
 the profiler naming the Hopper instances on that path and only there),
 and so do the LN-fused linear's forward and backward (kernels 8 and 9) at any output
-width O. Dropout masks are the same bits: the kernels and the plain
+width O (in their Hopper design, bf16 at D 768 with O a multiple of 8, at
+T from 1 to 333 across the edges of their 64-row tiles,
+one dγ/dβ partial row a cluster, the profiler naming the Hopper kernels
+on that path and only there). A first backward in a fresh process whose
+first node is a cluster kernel (3 or 9) runs, with or without a
+torch.profiler session before it. Dropout masks are the same bits: the kernels and the plain
 versions hash the same keys. The fused attention forward and backward
 agree to 1e-5 relative in fp32 and 2e-2 in bf16 (fp32 logits and softmax in
 both; the products accumulate in another order, and bf16 A and dS may
@@ -629,6 +634,164 @@ def test_fused_ln_linear_kernel_refuses_widths_it_does_not_take(cuda):
                         torch.zeros(192, 96, device=cuda))
 
 
+# Kernels 8 and 9 in their Hopper design (bf16, D = 768, O a multiple of
+# 8): T at the edges of their 64-row tiles and a ragged T; O below a
+# 64-wide chunk of kernel 9 (8), one 192-column tile of kernel 8 (192),
+# Part-fViT-B's 2,112 (11 tiles, 33 chunks) and 2,120 (a last tile and
+# chunk of 8)
+SM90_O = [8, 192, 2112, 2120]
+
+
+@pytest.mark.parametrize("o", SM90_O)
+@pytest.mark.parametrize("t", SM90_T)
+def test_fused_ln_linear_hopper_design_matches_plain(cuda, t, o):
+    """Kernels 8 and 9 in their Hopper design: y, xn, dx, dγ and dβ within
+    2e-2 of the plain versions, finite, one launch each; kernel 9 writes one
+    dγ/dβ partial row a 64-row cluster (the first design one a 32-row
+    block: from T = 33 on the two counts differ)."""
+    x, g, bt, w, dy = _ln_linear_operands(cuda, torch.bfloat16, t, 768, o,
+                                          seed=t + o)
+    before = dict(_build.LAUNCHES)
+    y = fused_ln_linear_fwd_cuda(x, g, bt, w)
+    got = fused_ln_linear_bwd_cuda(x, dy, g, bt, w)
+    torch.cuda.synchronize()
+    for name in ("fused_ln_linear", "fused_ln_linear_bwd"):
+        assert _build.LAUNCHES[name] == before.get(name, 0) + 1
+    assert y.shape == (t, o) and bool(torch.isfinite(y).all())
+    assert _rel(y, fused_ln_linear_fwd_plain(x, g, bt, w)) <= 2e-2
+    want = fused_ln_linear_bwd_plain(x, dy, g, bt, w)
+    for name, a, b in zip(("xn", "dx", "dg", "dbt"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) <= 2e-2, name
+    lib = _build.library()
+    assert lib.lafs_ln_linear_bwd_partial_rows(t, 768, o, 1) == -(-t // 64)
+    assert lib.lafs_ln_linear_bwd_partial_rows(t, 768, o, 0) == -(-t // 32)
+    assert lib.lafs_ln_linear_bwd_partial_rows(t, 768, 100, 1) == -(-t // 32)
+    assert lib.lafs_ln_linear_bwd_partial_rows(t, 128, o, 1) == -(-t // 32)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("t", [1, 65, 333])
+def test_fused_ln_linear_first_design_matches_plain_at_o_100(cuda, dtype,
+                                                             tol, t):
+    """O = 100 (not a multiple of 8) at D = 768 keeps the first design in
+    both dtypes: y, xn, dx, dγ and dβ within tolerance."""
+    x, g, bt, w, dy = _ln_linear_operands(cuda, dtype, t, 768, 100, seed=t)
+    y = fused_ln_linear_fwd_cuda(x, g, bt, w)
+    got = fused_ln_linear_bwd_cuda(x, dy, g, bt, w)
+    torch.cuda.synchronize()
+    assert _rel(y, fused_ln_linear_fwd_plain(x, g, bt, w)) <= tol
+    for name, a, b in zip(("xn", "dx", "dg", "dbt"), got,
+                          fused_ln_linear_bwd_plain(x, dy, g, bt, w)):
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) <= tol, name
+
+
+# The profiler's names of the LN + linear kernels that one forward and
+# backward launches at (dtype, D, O). The tests that read the profiler's
+# device trace run it in a fresh process: on the H100, a torch.profiler
+# session recorded no device events in a process that had run a session
+# before, once another process (one of this file's children) had run one.
+DESIGN_NAMES = """
+import json, sys, numpy as np, torch
+from torch.profiler import ProfilerActivity, profile
+from lafs_cvpr2024_tpu_torch.ops.fused_ln_linear import fused_ln_linear
+out = {}
+for dtype, d, o in ((torch.bfloat16, 768, 2112), (torch.bfloat16, 768, 100),
+                    (torch.bfloat16, 128, 192), (torch.float32, 768, 2112)):
+    rng = np.random.default_rng(5)
+    x, g, bt, w, dy = (torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
+                       for a in (rng.standard_normal((130, d)),
+                                 1.0 + 0.1 * rng.standard_normal(d),
+                                 0.1 * rng.standard_normal(d),
+                                 rng.standard_normal((o, d)) / np.sqrt(d),
+                                 rng.standard_normal((130, o))))
+    leaves = [a.requires_grad_() for a in (x, g, bt, w)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        y = fused_ln_linear(*leaves)
+        torch.autograd.grad(y, leaves, dy)
+        torch.cuda.synchronize()
+    out[f"{dtype} {d} {o}"] = sorted(
+        {e.key for e in prof.key_averages() if "ln_linear" in e.key})
+print(json.dumps(out))
+"""
+
+
+def _child(cuda, script, *args):
+    """Run ``script`` in a fresh Python process on the card from the
+    repository root, the kernel library built first: its run."""
+    import os
+    import subprocess
+    import sys
+
+    _build.library()  # built once here, loaded by the child
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, (root, os.environ.get("PYTHONPATH")))))
+    run = subprocess.run([sys.executable, "-c", script, *args], cwd=root,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-4000:]
+    return run
+
+
+def test_fused_ln_linear_runs_the_hopper_design_only_where_it_takes(cuda):
+    """By the profiler's kernel names: bf16 at D 768, O 2,112 launches the
+    Hopper kernels, O = 100, D = 128 and fp32 the first design's, and no
+    call launches both."""
+    import json
+
+    names = json.loads(_child(cuda, DESIGN_NAMES).stdout.splitlines()[-1])
+    hop = names.pop("torch.bfloat16 768 2112")
+    assert any("ln_linear_fwd_sm90" in k for k in hop)
+    assert any("ln_linear_bwd_sm90" in k for k in hop)
+    assert not any("bf16_kernel" in k for k in hop)
+    for first in names.values():
+        assert first and not any("sm90" in k for k in first)
+
+
+# A first backward whose first node is one of the port's cluster kernels
+# (kernel 3 or 9), in a fresh process: autograd's worker thread then makes
+# its first CUDA call through the kernel library, with no context current
+# to the thread yet; with and without a torch.profiler session before it.
+FIRST_BACKWARD = """
+import sys, torch
+from torch.profiler import ProfilerActivity, profile
+from lafs_cvpr2024_tpu_torch import _build
+from lafs_cvpr2024_tpu_torch.ops.fused_ln_linear import FusedLNLinear
+from lafs_cvpr2024_tpu_torch.ops.fused_mlp import FusedLNMLP
+op, profiled = sys.argv[1], sys.argv[2] == "1"
+if profiled:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        (torch.ones(4, device="cuda") * 2).sum().item()
+        torch.cuda.synchronize()
+gen = torch.Generator(device="cuda").manual_seed(0)
+def leaf(*shape):
+    t = torch.randn(*shape, device="cuda", generator=gen) * 0.05
+    return t.bfloat16().requires_grad_()
+if op == "ln_mlp":
+    leaves = [leaf(130, 768), leaf(768), leaf(768), leaf(2048, 768),
+              leaf(2048), leaf(768, 2048), leaf(768)]
+    y = FusedLNMLP.apply(*leaves, 1e-5, 0.0, 1)
+else:
+    leaves = [leaf(130, 768), leaf(768), leaf(768), leaf(2112, 768)]
+    y = FusedLNLinear.apply(*leaves, 1e-5)
+grads = torch.autograd.grad(y, leaves, torch.ones_like(y))
+torch.cuda.synchronize()
+assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
+name = "fused_ln_mlp_bwd" if op == "ln_mlp" else "fused_ln_linear_bwd"
+assert _build.LAUNCHES[name] == 1, dict(_build.LAUNCHES)
+"""
+
+
+@pytest.mark.parametrize("profiled", [True, False])
+@pytest.mark.parametrize("op", ["ln_mlp", "ln_linear"])
+def test_first_backward_in_a_fresh_process_runs_the_cluster_kernel(
+        cuda, op, profiled):
+    _child(cuda, FIRST_BACKWARD, op, str(int(profiled)))
+
+
 def test_simmim_model_kernel_configuration_matches_plain(cuda):
     """A small SimMIM Part-fViT on the card in fp32, training mode at rate
     0 with a mask: the kernel configuration (``fused`` MLP, ``lnqkv``
@@ -796,27 +959,41 @@ def test_flash_attention_bwd_kernels_are_deterministic(cuda, dtype):
         assert torch.equal(a, b)
 
 
+# One flash_attention_bwd_cuda call under the profiler, in a fresh process
+# (see DESIGN_NAMES): its launch counts and its device kernels in order.
+FLASH_BWD_TRACE = """
+import json, sys, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, "tests")
+from test_torch_cuda_kernels import _attn_operands
+from lafs_cvpr2024_tpu_torch import _build
+from lafs_cvpr2024_tpu_torch.ops.flash_attention import (
+    flash_attention_bwd_cuda, flash_attention_plain)
+q, k, v, do = _attn_operands(torch.device("cuda"), torch.bfloat16, 4, 11, 197)
+o, lse = flash_attention_plain(q, k, v, 0.1)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    flash_attention_bwd_cuda(q, k, v, o, lse, do, 0.1)
+    torch.cuda.synchronize()
+kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+print(json.dumps({"launches": dict(_build.LAUNCHES),
+                  "names": [e.name for e in kernels]}))
+"""
+
+
 def test_flash_attention_bwd_runs_11c_then_11b_and_nothing_else(cuda):
     """``flash_attention_bwd_cuda`` on the card: one launch of 11c, then one
     of 11b, and no other kernel (no plain-PyTorch di pass), by the
     profiler's device trace and the launch counts."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    import json
 
-    q, k, v, do = _attn_operands(cuda, torch.bfloat16, 4, 11, 197)
-    o, lse = flash_attention_plain(q, k, v, 0.1)
-    torch.cuda.synchronize()
-    before = dict(_build.LAUNCHES)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        flash_attention_bwd_cuda(q, k, v, o, lse, do, 0.1)
-        torch.cuda.synchronize()
+    got = json.loads(_child(cuda, FLASH_BWD_TRACE).stdout.splitlines()[-1])
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-        assert _build.LAUNCHES[name] == before.get(name, 0) + 1, name
-    kernels = sorted((e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-    names = [e.name for e in kernels]
+        assert got["launches"].get(name) == 1, name
+    names = got["names"]
     assert len(names) == 2, names
     assert "flash_bwd_dq_bf16" in names[0] and "flash_bwd_dkv_bf16" in names[1]
 

@@ -4,10 +4,13 @@
 The port's plain forward and backward are held against the JAX Pallas
 kernels in interpret mode (``fused_ln_linear(..., interpret=True)`` and its
 ``jax.vjp``) on the same numpy inputs at T = 130 (ragged against the JAX
-kernel's 64-row fp32 tile), D = 128 and output widths O = 384 and 192 (the
-JAX kernel pads 192 to 256), fp32: the forward to 1e-5 and every VJP
-output to 1e-4 relative (max-norm), summation order only. The CUDA kernels
-are held against these plain versions on the card
+kernel's 64-row fp32 tile and the port's 64- and 128-row tiles), D = 128
+with output widths O = 384 and 192 (the JAX kernel pads 192 to 256), and at
+Part-fViT-B's D = 768 and O = 2,112 (the width the port's Hopper designs
+take), fp32: the forward to 1e-5 and every VJP output to 1e-4 relative
+(max-norm), summation order only. What the wrapper hands the C entry points
+is checked here too: every operand contiguous at a 16-byte-aligned address.
+The CUDA kernels are held against these plain versions on the card
 (test_torch_cuda_kernels.py).
 """
 
@@ -25,6 +28,7 @@ from lafs_cvpr2024_tpu_torch import _build
 from lafs_cvpr2024_tpu_torch.models.layers import Transformer
 from lafs_cvpr2024_tpu_torch.ops.fused_ln_linear import (
     FusedLNLinear,
+    _operands,
     fused_ln_linear,
     fused_ln_linear_bwd_plain,
     fused_ln_linear_fwd_plain,
@@ -35,7 +39,7 @@ from lafs_cvpr2024_tpu_torch.train.checkpoint import (
 )
 
 
-def _operands(seed, t, d, o):
+def _arrays(seed, t, d, o):
     rng = np.random.default_rng(seed)
     return tuple(a.astype(np.float32) for a in (
         rng.standard_normal((t, d)) * 2.0 + 0.5,
@@ -49,9 +53,10 @@ def _rel(got, want):
     return np.abs(got - want).max() / np.abs(want).max()
 
 
-@pytest.mark.parametrize("o", [384, 192])
-def test_plain_matches_jax_kernel_forward_and_vjp(o):
-    x, g, bt, w, dy = _operands(0, 130, 128, o)
+def _jax_against_plain(x, g, bt, w, dy):
+    """The port's plain forward and VJP (dW as FusedLNLinear's product)
+    against the JAX kernel's in interpret mode, fp32."""
+    t, o = dy.shape
     jops = tuple(map(jnp.asarray, (x, g, bt, w)))
     y_j, vjp = jax.vjp(
         lambda *a: jax_fused_ln_linear(*a, interpret=True), *jops)
@@ -59,7 +64,7 @@ def test_plain_matches_jax_kernel_forward_and_vjp(o):
     tx, tg, tbt, tdy = map(torch.from_numpy, (x, g, bt, dy))
     tw = torch.from_numpy(np.ascontiguousarray(w.T))  # nn.Linear (O, D)
     y = fused_ln_linear_fwd_plain(tx, tg, tbt, tw)
-    assert y.shape == (130, o)
+    assert y.shape == (t, o)
     assert _rel(y.numpy(), y_j) <= 1e-5
     xn, dx, dg, dbt = fused_ln_linear_bwd_plain(tx, tdy, tg, tbt, tw)
     dw = (tdy.t() @ xn).t()  # FusedLNLinear's product, in the JAX layout
@@ -69,12 +74,43 @@ def test_plain_matches_jax_kernel_forward_and_vjp(o):
         assert _rel(a.numpy(), b) <= 1e-4, name
 
 
+@pytest.mark.parametrize("o", [384, 192])
+def test_plain_matches_jax_kernel_forward_and_vjp(o):
+    _jax_against_plain(*_arrays(0, 130, 128, o))
+
+
+def test_plain_matches_jax_kernel_at_full_width():
+    """D = 768, O = 2,112 (Part-fViT-B's to_qkv), T = 130."""
+    _jax_against_plain(*_arrays(4, 130, 768, 2112))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("offset", [0, 1, 3, 8])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_operands_are_contiguous_and_16_byte_aligned(dtype, offset,
+                                                     transposed):
+    """What the wrappers hand kernels 8 and 9: each operand contiguous at a
+    16-byte-aligned address with its values, the tensor itself where it is
+    already so."""
+    base = torch.arange(8 * 64 + 16, dtype=dtype)
+    base = base if base.data_ptr() % 16 == 0 else base.clone()
+    t = base[offset:offset + 8 * 64].view(8, 64)
+    t = t.t() if transposed else t
+    vec = base[offset:offset + 64]
+    got = _operands(t, vec)
+    for a, b in zip(got, (t, vec)):
+        assert a.is_contiguous() and a.data_ptr() % 16 == 0
+        assert torch.equal(a, b)
+    fine = not transposed and offset % (16 // base.element_size()) == 0
+    assert (got[0].data_ptr() == t.data_ptr()) is fine
+
+
 def test_autograd_function_equals_autograd_through_plain_forward():
     """FusedLNLinear (plain forward, plain backward, dW as a product)
     against torch autograd through the plain forward, fp32; the public
     function takes the autograd path and keeps the lead dimensions; a CPU
     tensor launches no kernel."""
-    x, g, bt, w, dy = map(torch.from_numpy, _operands(1, 70, 128, 192))
+    x, g, bt, w, dy = map(torch.from_numpy, _arrays(1, 70, 128, 192))
     w = w.t().contiguous()
 
     def grads(fn):
@@ -101,7 +137,7 @@ def test_plain_bf16_keeps_the_kernel_casts():
     """bf16: xn is rounded before the product (fp32 accumulate), y, xn and
     dx come out in bf16, dγ/dβ stay fp32 sums."""
     x, g, bt, w, dy = (torch.from_numpy(a).bfloat16()
-                       for a in _operands(2, 9, 128, 192))
+                       for a in _arrays(2, 9, 128, 192))
     w = w.t().contiguous()
     y = fused_ln_linear_fwd_plain(x, g, bt, w)
     xn = torch.nn.functional.layer_norm(x.float(), (128,), g.float(),
