@@ -189,6 +189,7 @@ ln_mlp_bwd_sm90(const __grid_constant__ CUtensorMap mdy,
     const int tid = threadIdx.x;
     const uint32_t h_peer = mapa(base + H_OFF, peer);
     const long long ra = (long long)row0 + rw, rb = ra + 8;
+    const uint32_t key_a = drop.row_key(ra, 0), key_b = drop.row_key(rb, 0);
     const float2 sa = quad_row_stats(x, ra, T_rows, eps, quad);
     const float2 sb = quad_row_stats(x, rb, T_rows, eps, quad);
     {  // xn for this CTA's columns: warpgroup wg stores row rw + 8 wg
@@ -210,24 +211,8 @@ ln_mlp_bwd_sm90(const __grid_constant__ CUtensorMap mdy,
     // do = drop_1(dy) in the row tile, in place (all 768 columns: both
     // CTAs' A operand); this CTA's 384 columns stored, rows below T
     mbar_wait(bars.x_full(), 0);
-    for (int e = tid; e < ROWS * (D / 8); e += CONSUMERS) {
-      const int r = e / (D / 8), c = e % (D / 8);
-      const long long row = (long long)row0 + r;
-      uint4* p = reinterpret_cast<uint4*>(sbase + X_OFF + tile_offset(r, c));
-      uint4 w = *p;
-      if (DROP) {
-        float f[8];
-        unpack8(w, f);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) f[k] = drop.apply(f[k], row, 8 * c + k, 1);
-        w = pack8(f);
-        *p = w;
-      }
-      if (row < T_rows && c / (COLS / 8) == (int)rank)
-        reinterpret_cast<uint4*>(do_ + row * D)[c] = w;
-    }
-    fence_proxy_async();  // do, written here, is read by the wgmmas
-    bar_sync(1, CONSUMERS);
+    do_tile_in_place<DROP>(sbase + X_OFF, do_, row0, T_rows, drop,
+                           (COLS / 8) * rank, (COLS / 8) * (rank + 1));
 
     float acc[96];
 #pragma unroll
@@ -236,17 +221,9 @@ ln_mlp_bwd_sm90(const __grid_constant__ CUtensorMap mdy,
     for (int c = 0; c < chunks; ++c) {
       const int h0 = c * HC;
       const int hbox = 2 * rank + wg;  // this warpgroup's 64 chunk columns
-      // this thread's u pairs of the chunk, loaded ahead of the product:
-      // pair q at row rw + 8 (q & 1), columns 8 (q >> 1) + 2 quad + [0, 2)
+      // this thread's u pairs of the chunk, loaded ahead of the product
       uint32_t uw[16];
-#pragma unroll
-      for (int q = 0; q < 16; ++q) {
-        const long long row = (q & 1) ? rb : ra;
-        const int col = h0 + 64 * hbox + 8 * (q >> 1) + 2 * quad;
-        uw[q] = row < T_rows
-                    ? __ldg(reinterpret_cast<const unsigned int*>(u + row * H + col))
-                    : 0u;
-      }
+      load_u_pairs(u, ra, rb, T_rows, H, h0 + 64 * hbox + 2 * quad, uw);
       // dhd = do @ W2ᵀ[:, h0 + 64 hbox : +64], K = 768 in 4 slabs
       float dh[32];
 #pragma unroll
@@ -277,26 +254,15 @@ ln_mlp_bwd_sm90(const __grid_constant__ CUtensorMap mdy,
         const int row = rw + 8 * (q & 1), j8 = q >> 1;
         const int col = h0 + 64 * hbox + 8 * j8 + 2 * quad;
         const long long grow = (long long)row0 + row;
-        const float u0 = lo_f32(uw[q]), u1 = hi_f32(uw[q]);
-        float h0v = lafs_mlp::gelu(u0), h1v = lafs_mlp::gelu(u1);
-        float d0 = dh[2 * q], d1 = dh[2 * q + 1];
-        if (DROP) {
-          const bool k0 = drop.keep(grow, col, 0), k1 = drop.keep(grow, col + 1, 0);
-          h0v = k0 ? h0v * drop.inv_keep : 0.0f;
-          h1v = k1 ? h1v * drop.inv_keep : 0.0f;
-          d0 = k0 ? d0 * drop.inv_keep : 0.0f;
-          d1 = k1 ? d1 * drop.inv_keep : 0.0f;
-        }
-        d0 *= lafs_mlp::gelu_grad(u0);
-        d1 *= lafs_mlp::gelu_grad(u1);
-        const uint32_t p = pack_bf16(d0, d1);
+        const uint2 p = hidden_pair<DROP>(uw[q], dh[2 * q], dh[2 * q + 1],
+                                          (q & 1) ? key_b : key_a, col, drop);
         if (grow < T_rows) {
-          store_pair(hd, grow * H + col, h0v, h1v);
-          *reinterpret_cast<uint32_t*>(du + grow * H + col) = p;
+          *reinterpret_cast<uint32_t*>(hd + grow * H + col) = p.x;
+          *reinterpret_cast<uint32_t*>(du + grow * H + col) = p.y;
         }
         const uint32_t off = h_offset(hbox, row, j8, quad);
-        *reinterpret_cast<uint32_t*>(sbase + H_OFF + off) = p;
-        st_cluster_u32(h_peer + off, p);
+        *reinterpret_cast<uint32_t*>(sbase + H_OFF + off) = p.y;
+        st_cluster_u32(h_peer + off, p.y);
       }
       fence_proxy_async_all();
       arrive_both(bars.h_full(), peer);

@@ -66,19 +66,27 @@ __device__ __forceinline__ void row_stats(const T* __restrict__ src, int D,
 // draw, row in tile, column). `tile` is the JAX kernel's row tile (128 for
 // bf16, 64 for fp32), not a tile of these kernels: the key is a function
 // of the global row alone. Draw 0 masks the hidden activation, draw 1 the
-// output. An element is kept when its bits are below `thresh`.
+// output. An element is kept when its bits are below `thresh`. A loop over
+// one row's columns folds the row's part of the key once (row_key) and
+// hashes each column with keep_col: the same bits as keep.
 struct Dropout {
   uint32_t seed, thresh;
   float inv_keep;
   int on, tile;
 
-  __device__ __forceinline__ bool keep(long long row, int col, uint32_t draw) const {
+  __device__ __forceinline__ uint32_t row_key(long long row,
+                                              uint32_t draw) const {
     const uint32_t t = (uint32_t)(row / tile), r = (uint32_t)(row % tile);
-    uint32_t v = (r * 2654435761u) ^ ((uint32_t)col * 0x9E3779B9u) ^
-                 (seed + t * 0xB5297A4Du + draw * 0x85EBCA6Bu);
+    return (r * 2654435761u) ^ (seed + t * 0xB5297A4Du + draw * 0x85EBCA6Bu);
+  }
+  __device__ __forceinline__ bool keep_col(uint32_t rk, int col) const {
+    uint32_t v = rk ^ ((uint32_t)col * 0x9E3779B9u);
     v = (v ^ (v >> 16)) * 0x7FEB352Du;
     v = (v ^ (v >> 15)) * 0x846CA68Bu;
     return (v ^ (v >> 16)) < thresh;
+  }
+  __device__ __forceinline__ bool keep(long long row, int col, uint32_t draw) const {
+    return keep_col(row_key(row, draw), col);
   }
   // v as the JAX kernel's where(mask, v * (1/keep), 0) leaves it
   __device__ __forceinline__ float apply(float v, long long row, int col,

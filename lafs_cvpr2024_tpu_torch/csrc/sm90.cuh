@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's redesigned kernels, as
 // thin inline-PTX wrappers: mbarriers, TMA tile loads and stores through a
 // CUtensorMap, wgmma descriptors and products, the cluster helpers and
-// setmaxnreg. Kernels 2 and 3 (fused_ln_mlp*.cu) and 8 and 9
+// setmaxnreg. Kernels 2-5 (fused_ln_mlp*.cu, fused_mlp*.cu) and 8 and 9
 // (fused_ln_linear*.cu), through fused_ln_mlp_sm90.cuh, 6 and 7
 // (fused_attention*.cu), 11a-c (flash_attention*.cu) and row 10
 // (mlp_fusion.cu) use them.
@@ -130,6 +130,15 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
 }
 
 // shared -> global; elements of the box outside the tensor are not written
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
                                              uint32_t src, int c0, int c1,
                                              int c2, int c3) {

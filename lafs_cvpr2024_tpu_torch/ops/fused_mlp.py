@@ -13,14 +13,14 @@ Four kernels carry them on the card, each beside its plain PyTorch version
 - kernel 3, ``csrc/fused_ln_mlp_bwd.cu``, its backward (replaces
   ``_ln_bwd_kernel``): regenerated masks, GELU′, ``do·W2``, ``du·W1`` and the
   LayerNorm backward, with per-block dγ/dβ partial sums;
-  both in bf16 at D = 768 with H a multiple of 256 (every full-width path)
-  in their Hopper design (``csrc/fused_ln_mlp_sm90.cuh``), other widths
-  and fp32 in their first, as the C entry points choose;
 - kernel 4, ``csrc/fused_mlp.cu``, the forward without the LayerNorm
-  (replaces ``_fwd_kernel``; ``mlp_impl='fused'``);
+  (replaces ``_fwd_kernel``; ``mlp_impl='fused'``): kernel 2's body;
 - kernel 5, ``csrc/fused_mlp_bwd.cu``, its backward (replaces
   ``_bwd_kernel``): regenerated masks, ``do·W2`` and GELU′, ending at
-  ``(do, hd, du)``.
+  ``(do, hd, du)``: kernel 3's prologue and first product;
+  all four in bf16 at D = 768 with H a multiple of 256 (every full-width
+  path) in their Hopper design (``csrc/fused_ln_mlp_sm90.cuh``), other
+  widths and fp32 in their first, as the C entry points choose.
 
 :class:`FusedLNMLP` and :class:`FusedMLP` join them into autograd
 functions; the weight gradients (and kernel 5's ``dx = du·W1``) are plain
@@ -168,8 +168,8 @@ def _check(what, x, ops, d, hdim, max_d):
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous ``t`` at a 16-byte-aligned address, as kernels 2 and 3's
-    Hopper design reads it (TMA tiles, 16-byte loads): ``t`` itself, or a
+    """Contiguous ``t`` at a 16-byte-aligned address, as the Hopper design
+    of kernels 2-5 reads it (TMA tiles, 16-byte loads): ``t`` itself, or a
     copy."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -351,8 +351,8 @@ class FusedLNMLP(torch.autograd.Function):
         # kernels), rounded once to the weight's dtype
         dw1 = torch.matmul(du.t(), xn).to(w1.dtype)
         dw2 = torch.matmul(do.t(), hd).to(w2.dtype)
-        db1 = du.to(f32).sum(0).to(x.dtype)
-        db2 = do.to(f32).sum(0).to(x.dtype)
+        db1 = du.sum(0, dtype=f32).to(x.dtype)
+        db2 = do.sum(0, dtype=f32).to(x.dtype)
         return (dx, dg.to(g.dtype), dbt.to(bt.dtype), dw1, db1, dw2, db2,
                 None, None, None)
 
@@ -378,8 +378,9 @@ def fused_ln_mlp(x, g, bt, w1, b1, w2, b2, *, eps: float = 1e-5,
 def fused_mlp_fwd_cuda(x, w1, b1, w2, b2, *, rate: float = 0.0,
                        seed: int = 0, save_u: bool = False):
     """Launch kernel 4 on x (T, D) on its CUDA device (every operand in x's
-    dtype, D a multiple of 128 up to 768, H a multiple of 128). Returns
-    ``(y, u)`` as :func:`fused_mlp_fwd_plain`."""
+    dtype, D a multiple of 128 up to 768, H a multiple of 128; bf16 at D =
+    768 with H a multiple of 256 in the Hopper design). Returns ``(y, u)``
+    as :func:`fused_mlp_fwd_plain`."""
     d, hdim = x.shape[-1], w1.shape[0]
     ops = (w1, b1, w2, b2)
     _check("fused_mlp_fwd_cuda", x, ops, d, hdim, 768)
@@ -394,6 +395,7 @@ def fused_mlp_fwd_cuda(x, w1, b1, w2, b2, *, rate: float = 0.0,
     if w1.data_ptr() % 32 or w2.data_ptr() % 32:
         raise ValueError("fused_mlp_fwd_cuda: the weights must be 32-byte "
                          "aligned (tensor-core fragment loads)")
+    x, b1, b2 = (_aligned(v) for v in (x, b1, b2))
     t = x.shape[0]
     y = torch.empty_like(x)
     u = x.new_empty((t, hdim)) if save_u else None
@@ -417,7 +419,8 @@ def fused_mlp_fwd(x, w1, b1, w2, b2, **kw):
 
 
 def fused_mlp_bwd_cuda(u, dy, w2, *, rate: float = 0.0, seed: int = 0):
-    """Launch kernel 5 on its CUDA device; returns what
+    """Launch kernel 5 on its CUDA device (bf16 at D = 768 with H a
+    multiple of 256 in the Hopper design); returns what
     :func:`fused_mlp_bwd_plain` returns."""
     t, d = dy.shape[0], dy.shape[-1]
     hdim = u.shape[-1]
@@ -432,6 +435,7 @@ def fused_mlp_bwd_cuda(u, dy, w2, *, rate: float = 0.0, seed: int = 0):
     if w2.data_ptr() % 32:
         raise ValueError("fused_mlp_bwd_cuda: w2 must be 32-byte aligned "
                          "(tensor-core fragment loads)")
+    u, dy = _aligned(u), _aligned(dy)
     do = torch.empty_like(dy)
     hd, du = torch.empty_like(u), torch.empty_like(u)
     lib = _build.library()
@@ -473,12 +477,13 @@ class FusedMLP(torch.autograd.Function):
         x, u, w1, w2 = ctx.saved_tensors
         do, hd, du = fused_mlp_bwd(u, dy.contiguous(), w2, **ctx.hyper)
         f32 = torch.float32
-        # products in x's dtype accumulate in fp32, rounded once
+        # products in x's dtype accumulate in fp32, rounded once; the bias
+        # sums accumulate in fp32 without an fp32 copy of du and do
         dx = torch.matmul(du, w1).to(x.dtype)
         dw1 = torch.matmul(du.t(), x).to(w1.dtype)
         dw2 = torch.matmul(do.t(), hd).to(w2.dtype)
-        db1 = du.to(f32).sum(0).to(x.dtype)
-        db2 = do.to(f32).sum(0).to(x.dtype)
+        db1 = du.sum(0, dtype=f32).to(x.dtype)
+        db2 = do.sum(0, dtype=f32).to(x.dtype)
         return dx, dw1, db1, dw2, db2, None, None
 
 

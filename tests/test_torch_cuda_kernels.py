@@ -11,17 +11,18 @@ Tolerances: the gather agrees to 1e-5 in fp32 and to one bf16 ulp in bf16
 (the same four-corner sum, contracted to FMAs by nvcc); the MLP forward
 and backward to 1e-4 relative in fp32 and 2e-2 in bf16 (both accumulate in
 fp32 in another order, and a 1-ulp flip of a bf16 intermediate moves the
-output), with and without the LayerNorm (kernels 2-5; 2 and 3 also in
+output), with and without the LayerNorm (kernels 2-5, all four also in
 their Hopper design, bf16 at D 768 and H 256, 512 and 2048, at T from 1
-to 333 across the edges of its 64-row cluster and of the hash's 128-row
-tile, every (rate, u saved) instance, one dγ/dβ partial row a cluster,
-the profiler naming the Hopper instances on that path and only there),
+to 333 across the edges of the 64-row tile and of the hash's 128-row
+tile, every (rate, u saved) instance, kernel 3's one dγ/dβ partial row a
+cluster, the profiler naming the Hopper instances on that path and only
+there, misaligned operands copied to aligned ones by the wrappers),
 and so do the LN-fused linear's forward and backward (kernels 8 and 9) at any output
 width O (in their Hopper design, bf16 at D 768 with O a multiple of 8, at
 T from 1 to 333 across the edges of their 64-row tiles,
 one dγ/dβ partial row a cluster, the profiler naming the Hopper kernels
 on that path and only there). A first backward in a fresh process whose
-first node is a cluster kernel (3 or 9) runs, with or without a
+first node is a kernel that encodes a tensor map (3, 5 or 9) runs, with or without a
 torch.profiler session before it. Dropout masks are the same bits: the kernels and the plain
 versions hash the same keys. The fused attention forward and backward
 agree to 1e-5 relative in fp32 and 2e-2 in bf16 (fp32 logits and softmax in
@@ -549,6 +550,138 @@ def test_fused_mlp_autograd_launches_both_kernels(cuda):
         assert _rel(a, b) <= 1e-4
 
 
+@pytest.mark.parametrize("h", [256, 512, 2048])
+@pytest.mark.parametrize("t", SM90_T)
+@pytest.mark.parametrize("rate,save_u", [(0.0, False), (0.0, True),
+                                         (0.1, False), (0.1, True)])
+def test_fused_mlp_hopper_design_matches_plain(cuda, h, t, rate, save_u):
+    """Kernel 4's Hopper design (kernel 2's body without the LayerNorm):
+    y (and u) within 2e-2 of the plain version, finite, and the output
+    mask its bits."""
+    x, _, _, w1, b1, w2, b2 = _mlp_operands(cuda, torch.bfloat16, t, 768, h,
+                                            seed=t + h + 2)
+    kw = dict(rate=rate, seed=8642, save_u=save_u)
+    got, u = fused_mlp_fwd_cuda(x, w1, b1, w2, b2, **kw)
+    want, u_want = fused_mlp_fwd_plain(x, w1, b1, w2, b2, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (t, 768) and bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= 2e-2
+    if save_u:
+        assert u.shape == (t, h) and bool(torch.isfinite(u).all())
+        assert _rel(u, u_want) <= 2e-2
+    else:
+        assert u is None
+    if rate:
+        m2 = dropout_mask(t, 768, 8642, rate, 1, torch.bfloat16, cuda)
+        assert torch.equal(got != 0, m2) and torch.equal(want != 0, m2)
+
+
+@pytest.mark.parametrize("h", [256, 512, 2048])
+@pytest.mark.parametrize("t", SM90_T)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_mlp_bwd_hopper_design_matches_plain(cuda, h, t, rate):
+    """Kernel 5's Hopper design: do, hd and du within 2e-2 of the plain
+    version and finite, both masks bit for bit."""
+    x, _, _, w1, b1, w2, b2 = _mlp_operands(cuda, torch.bfloat16, t, 768, h,
+                                            seed=t + h + 3)
+    _, u = fused_mlp_fwd_plain(x, w1, b1, w2, b2, save_u=True)
+    dy = torch.randn(t, 768, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(t + 1)
+                     ).to(torch.bfloat16)
+    got = fused_mlp_bwd_cuda(u, dy, w2, rate=rate, seed=77)
+    want = fused_mlp_bwd_plain(u, dy, w2, rate=rate, seed=77)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("do", "hd", "du"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) <= 2e-2, name
+    if rate:
+        m1 = dropout_mask(t, h, 77, rate, 0, torch.bfloat16, cuda)
+        m2 = dropout_mask(t, 768, 77, rate, 1, torch.bfloat16, cuda)
+        h0 = torch.nn.functional.gelu(u.float()).to(torch.bfloat16)
+        assert torch.equal(got[1] != 0, m1 & (h0 != 0))
+        assert torch.equal(got[0] != 0, m2 & (dy != 0))
+
+
+def _offset_view(a):
+    """``a``'s values in a tensor whose data starts 2 bytes past a 16-byte
+    boundary (a contiguous view one element into a larger buffer)."""
+    buf = torch.empty(a.numel() + 1, device=a.device, dtype=a.dtype)
+    view = buf[1:].view(a.shape)
+    view.copy_(a)
+    assert view.data_ptr() % 16 and view.is_contiguous()
+    return view
+
+
+def test_fused_mlp_wrappers_take_misaligned_operands(cuda):
+    """Kernels 4 and 5 in the Hopper design given x, b1, b2, u and dy as
+    views off a 16-byte boundary: the wrappers hand the kernels aligned
+    copies, and the results equal those of the aligned operands."""
+    x, _, _, w1, b1, w2, b2 = _mlp_operands(cuda, torch.bfloat16, 130, 768,
+                                            512, seed=9)
+    kw = dict(rate=0.1, seed=31)
+    y, u = fused_mlp_fwd_cuda(x, w1, b1, w2, b2, save_u=True, **kw)
+    y_off, u_off = fused_mlp_fwd_cuda(_offset_view(x), w1, _offset_view(b1),
+                                      w2, _offset_view(b2), save_u=True, **kw)
+    dy = torch.randn(130, 768, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(3)
+                     ).to(torch.bfloat16)
+    got = fused_mlp_bwd_cuda(u, dy, w2, **kw)
+    got_off = fused_mlp_bwd_cuda(_offset_view(u), _offset_view(dy), w2, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_off) and torch.equal(u, u_off)
+    for a, b in zip(got, got_off):
+        assert torch.equal(a, b)
+    want, _ = fused_mlp_fwd_plain(x, w1, b1, w2, b2, **kw)
+    assert _rel(y_off, want) <= 2e-2
+
+
+# The profiler's kernel names of a FusedMLP forward and backward, each case
+# in this fresh process (see DESIGN_NAMES below)
+MLP_DESIGN_NAMES = """
+import json, numpy as np, torch
+from torch.profiler import ProfilerActivity, profile
+from lafs_cvpr2024_tpu_torch.ops.fused_mlp import fused_mlp
+out = {}
+for dtype, d, h in ((torch.bfloat16, 768, 2048), (torch.bfloat16, 128, 256),
+                    (torch.bfloat16, 768, 1920), (torch.float32, 768, 2048)):
+    rng = np.random.default_rng(6)
+    x, w1, b1, w2, b2, dy = (
+        torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
+        for a in (rng.standard_normal((130, d)),
+                  rng.standard_normal((h, d)) / np.sqrt(d),
+                  0.1 * rng.standard_normal(h),
+                  rng.standard_normal((d, h)) / np.sqrt(h),
+                  0.1 * rng.standard_normal(d), rng.standard_normal((130, d))))
+    leaves = [a.requires_grad_() for a in (x, w1, b1, w2, b2)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        y = fused_mlp(*leaves, rate=0.1, seed=5)
+        torch.autograd.grad(y, leaves, dy)
+        torch.cuda.synchronize()
+    out[f"{dtype} {d} {h}"] = sorted(
+        {e.key for e in prof.key_averages()
+         if "mlp_fwd" in e.key or "mlp_bwd" in e.key})
+print(json.dumps(out))
+"""
+
+
+def test_fused_mlp_runs_the_hopper_design_only_where_it_takes(cuda):
+    """By the profiler's kernel names: bf16 at D 768, H 2048 launches
+    kernels 4 and 5's Hopper instances (named mlp_fwd_sm90 and
+    mlp_bwd_sm90, never kernel 2's or 3's ln_mlp_ names) and no first-design
+    kernel; D = 128, H = 1,920 and fp32 launch only the first design."""
+    import json
+
+    names = json.loads(_child(cuda, MLP_DESIGN_NAMES).stdout.splitlines()[-1])
+    hop = names.pop("torch.bfloat16 768 2048")
+    assert any("mlp_fwd_sm90" in k for k in hop)
+    assert any("mlp_bwd_sm90" in k for k in hop)
+    assert not any("ln_mlp_" in k or "bf16_kernel" in k for k in hop)
+    for first in names.values():
+        assert first and not any("sm90" in k for k in first)
+        assert not any("ln_mlp_" in k for k in first)
+
+
 def test_fused_mlp_kernel_refuses_widths_it_does_not_take(cuda):
     x = torch.zeros(8, 96, device=cuda)
     with pytest.raises(ValueError, match="D % 128"):
@@ -751,16 +884,17 @@ def test_fused_ln_linear_runs_the_hopper_design_only_where_it_takes(cuda):
         assert first and not any("sm90" in k for k in first)
 
 
-# A first backward whose first node is one of the port's cluster kernels
-# (kernel 3 or 9), in a fresh process: autograd's worker thread then makes
-# its first CUDA call through the kernel library, with no context current
-# to the thread yet; with and without a torch.profiler session before it.
+# A first backward whose first node is one of the port's kernels that
+# encode a tensor map (kernel 3, 5 or 9), in a fresh process: autograd's
+# worker thread then makes its first CUDA call through the kernel library,
+# with no context current to the thread yet; with and without a
+# torch.profiler session before it.
 FIRST_BACKWARD = """
 import sys, torch
 from torch.profiler import ProfilerActivity, profile
 from lafs_cvpr2024_tpu_torch import _build
 from lafs_cvpr2024_tpu_torch.ops.fused_ln_linear import FusedLNLinear
-from lafs_cvpr2024_tpu_torch.ops.fused_mlp import FusedLNMLP
+from lafs_cvpr2024_tpu_torch.ops.fused_mlp import FusedLNMLP, FusedMLP
 op, profiled = sys.argv[1], sys.argv[2] == "1"
 if profiled:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
@@ -774,19 +908,24 @@ if op == "ln_mlp":
     leaves = [leaf(130, 768), leaf(768), leaf(768), leaf(2048, 768),
               leaf(2048), leaf(768, 2048), leaf(768)]
     y = FusedLNMLP.apply(*leaves, 1e-5, 0.0, 1)
+elif op == "mlp":
+    leaves = [leaf(130, 768), leaf(2048, 768), leaf(2048), leaf(768, 2048),
+              leaf(768)]
+    y = FusedMLP.apply(*leaves, 0.0, 1)
 else:
     leaves = [leaf(130, 768), leaf(768), leaf(768), leaf(2112, 768)]
     y = FusedLNLinear.apply(*leaves, 1e-5)
 grads = torch.autograd.grad(y, leaves, torch.ones_like(y))
 torch.cuda.synchronize()
 assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
-name = "fused_ln_mlp_bwd" if op == "ln_mlp" else "fused_ln_linear_bwd"
+name = {"ln_mlp": "fused_ln_mlp_bwd", "mlp": "fused_mlp_bwd",
+        "ln_linear": "fused_ln_linear_bwd"}[op]
 assert _build.LAUNCHES[name] == 1, dict(_build.LAUNCHES)
 """
 
 
 @pytest.mark.parametrize("profiled", [True, False])
-@pytest.mark.parametrize("op", ["ln_mlp", "ln_linear"])
+@pytest.mark.parametrize("op", ["ln_mlp", "mlp", "ln_linear"])
 def test_first_backward_in_a_fresh_process_runs_the_cluster_kernel(
         cuda, op, profiled):
     _child(cuda, FIRST_BACKWARD, op, str(int(profiled)))

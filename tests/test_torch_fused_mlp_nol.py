@@ -7,8 +7,12 @@ kernels in interpret mode (``_fused_mlp2d(..., interpret=True)`` and its
 tile), D = 128, H = 256, dropout rates 0 and 0.1 at one int seed, fp32:
 the forward to 1e-5 and every VJP output to 1e-4 relative (max-norm); the
 two sides differ in summation order and in the JAX kernel's A&S erf
-(|err| ≤ 1.5e-7). The dropout masks are the same bits. The CUDA kernels
-are held against these plain versions on the card
+(|err| ≤ 1.5e-7). The same holds in bf16, the Hopper design's dtype,
+whose dropout hash is keyed by the 128-row tile: at T = 129 (across that
+tile), D = 768, H = 256, the forward and every VJP output within 2e-2
+relative (the card's bf16 bar: a 1-ulp flip of a bf16 intermediate moves
+the output), the hidden mask the JAX kernel's draw 0 bit for bit. The CUDA
+kernels are held against these plain versions on the card
 (test_torch_cuda_kernels.py).
 """
 
@@ -19,7 +23,7 @@ import pytest
 import torch
 
 from lafs_cvpr2024_tpu.models.layers import FeedForward as JaxFeedForward
-from lafs_cvpr2024_tpu.ops.fused_mlp import _fused_mlp2d, _fwd_call
+from lafs_cvpr2024_tpu.ops.fused_mlp import _bwd_call, _fused_mlp2d, _fwd_call
 from lafs_cvpr2024_tpu.ops.fused_mlp import fused_mlp as jax_fused_mlp
 from lafs_cvpr2024_tpu_torch import _build
 from lafs_cvpr2024_tpu_torch.models.layers import FeedForward
@@ -90,6 +94,57 @@ def test_plain_matches_jax_kernel_forward_and_vjp(rate):
     assert np.array_equal(hd.numpy() != 0, keep if rate else np.ones_like(keep))
     if rate:
         assert 0.05 < 1 - keep.mean() < 0.15
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_plain_matches_jax_kernel_in_bf16_across_the_hash_tile(rate):
+    """bf16 at T = 129 (one row past the hash's 128-row tile), D = 768,
+    H = 256: y, the saved u, the backward's do, hd, du and the VJP (dx,
+    dW1, db1, dW2, db2) within 2e-2 of the JAX kernels in interpret mode on
+    the same bf16 values; the hidden mask (the zeros of hd) is JAX's draw
+    0, keyed by the 128-row tile, bit for bit on both sides."""
+    t, d, h = 129, 768, 256
+    tops = [a.to(torch.bfloat16) for a in _torch(_operands(8, t, d, h))]
+    # the JAX side gets the same bf16 values, in the JAX weight layout
+    x, w1, b1, w2, b2 = (jnp.asarray(a.float().numpy()).astype(jnp.bfloat16)
+                         for a in tops)
+    jops = (x, w1.T, b1, w2.T, b2)
+    seed = jnp.asarray([SEED], jnp.int32)
+    dy_t = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (t, d)).astype(np.float32)).to(torch.bfloat16)
+    dy = jnp.asarray(dy_t.float().numpy()).astype(jnp.bfloat16)
+
+    def f(*a):
+        return _fused_mlp2d(*a, seed, rate, True)
+
+    y_j, vjp = jax.vjp(f, *jops)
+    grads_j = vjp(dy)
+    _, u_j = _fwd_call(*jops, seed, rate, save_u=True, interpret=True)
+    do_j, hd_j, du_j = _bwd_call(u_j, dy, jops[3], seed, rate, True)
+    y, u = fused_mlp_fwd_plain(*tops, rate=rate, seed=SEED, save_u=True)
+    do, hd, du = fused_mlp_bwd_plain(u, dy_t, tops[3], rate=rate, seed=SEED)
+    xt, w1t = tops[0], tops[1]
+    got = {"y": y, "u": u, "do": do, "hd": hd, "du": du,
+           "dx": torch.matmul(du, w1t), "dw1": torch.matmul(du.t(), xt).t(),
+           "db1": du.float().sum(0), "dw2": torch.matmul(do.t(), hd).t(),
+           "db2": do.float().sum(0)}
+    want = {"y": y_j, "u": u_j[:t], "do": do_j, "hd": hd_j[:t],
+            "du": du_j[:t], **dict(zip(("dx", "dw1", "db1", "dw2", "db2"),
+                                       grads_j))}
+    for name, a in got.items():
+        assert a.dtype == torch.bfloat16 or name in ("db1", "db2"), name
+        b = np.asarray(want[name], np.float32)
+        assert a.shape == b.shape, name
+        assert _rel(a.float().numpy(), b) <= 2e-2, name
+    keep = dropout_bits(t, h, SEED, 0, 128).numpy() < keep_threshold(rate)
+    if not rate:
+        keep[:] = True
+    assert np.array_equal(hd.float().numpy() != 0, keep)
+    assert np.array_equal(np.asarray(hd_j[:t], np.float32) != 0, keep)
+    if rate:
+        # the fp32 key (64-row tile) draws other bits: the tile matters
+        keep64 = dropout_bits(t, h, SEED, 0, 64).numpy() < keep_threshold(rate)
+        assert not np.array_equal(keep64, keep)
 
 
 def test_public_function_matches_jax_and_keeps_lead_dims():
