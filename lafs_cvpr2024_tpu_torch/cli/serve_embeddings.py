@@ -18,6 +18,14 @@ work against this server.
 
 The server runs on CUDA and refuses to start without it, unless
 ``--device cpu`` is given explicitly.
+
+Spans (``utils/tracing.py``, when on), each with ``request=i``, the
+request's place in the order the server read them: ``serve.read`` (from
+its header to the parsed batch), ``serve.dispatch`` (pad, copy, launch),
+``serve.collect.wait`` (the wait for the card), ``serve.collect.fetch``
+(copy back, flip-sum, normalise) and ``serve.send``; counters
+``serve.rows`` (rows forwarded, padding and flipped views included),
+``serve.faces`` and ``serve.requests``.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from ..eval.loading import (
     resolve_input_scale,
 )
 from ..ops.augment_device import scale_uint8
+from ..utils import tracing
 
 MAGIC = 0x4C414653  # "LAFS": raw uint8 pixels
 MAGIC_JPEG = 0x4C414A50  # "LAJP": JPEG crops + 5-pt landmarks (not ported)
@@ -77,6 +86,16 @@ def _recv_exact(conn, n: int) -> bytes:
     return bytes(buf)
 
 
+class _InFlight(list):
+    """The dispatched chunks of one request, ``(embeddings, faces)`` each,
+    with the request's id and, when tracing, an event after each chunk's
+    forward."""
+
+    def __init__(self, request: int):
+        super().__init__()
+        self.request, self.events = request, []
+
+
 class EmbeddingServer:
     """The model behind a fixed batch shape, on one device."""
 
@@ -106,6 +125,7 @@ class EmbeddingServer:
         self._embed(torch.from_numpy(warm).to(self.device)).cpu()
         print(f"[serve] warmed up batch {args.batch_size} "
               f"(flip={'on' if args.flip else 'off'}) on {self.device}")
+        self.requests_read = 0  # request i is the i-th read
 
     @torch.inference_mode()
     def _embed(self, batch: torch.Tensor) -> torch.Tensor:
@@ -116,22 +136,43 @@ class EmbeddingServer:
         """Chunk + pad and LAUNCH the device work without fetching results
         (CUDA runs asynchronously): opaque handles for ``_collect``."""
         bs = self.args.batch_size
-        out = []
-        for s in range(0, len(imgs), bs):
-            chunk = imgs[s:s + bs]
-            n = len(chunk)
-            if n < bs:  # pad up to the fixed shape
-                chunk = np.concatenate(
-                    [chunk, np.zeros((bs - n, *chunk.shape[1:]), np.uint8)])
-            batch = torch.from_numpy(chunk.copy()).to(
-                self.device, non_blocking=True)
-            if self.args.flip:
-                batch = torch.cat([batch, torch.flip(batch, dims=[2])])
-            out.append((self._embed(batch), n))
+        out = _InFlight(self.requests_read - 1)  # the request last read
+        with tracing.span("serve.dispatch", request=out.request):
+            for s in range(0, len(imgs), bs):
+                chunk = imgs[s:s + bs]
+                n = len(chunk)
+                if n < bs:  # pad up to the fixed shape
+                    chunk = np.concatenate(
+                        [chunk, np.zeros((bs - n, *chunk.shape[1:]),
+                                         np.uint8)])
+                batch = torch.from_numpy(chunk.copy()).to(
+                    self.device, non_blocking=True)
+                if self.args.flip:
+                    batch = torch.cat([batch, torch.flip(batch, dims=[2])])
+                out.append((self._embed(batch), n))
+                if tracing.ON:
+                    tracing.count("serve.rows", len(batch))
+                    if self.device.type == "cuda":
+                        out.events.append(torch.cuda.Event())
+                        out.events[-1].record()
+        if tracing.ON:
+            tracing.count("serve.faces", len(imgs))
+            tracing.count("serve.requests")
         return out
 
     def _collect(self, handles) -> np.ndarray:
-        """Fetch dispatched device work → L2-normalised (N, D) float32."""
+        """Fetch dispatched device work → L2-normalised (N, D) float32;
+        when tracing, the wait for the card and the fetch are timed
+        apart."""
+        if not tracing.ON:
+            return self._fetch(handles)
+        with tracing.span("serve.collect.wait", request=handles.request):
+            for event in handles.events:
+                event.synchronize()
+        with tracing.span("serve.collect.fetch", request=handles.request):
+            return self._fetch(handles)
+
+    def _fetch(self, handles) -> np.ndarray:
         bs = self.args.batch_size
         out = []
         for dev, n in handles:
@@ -149,11 +190,16 @@ class EmbeddingServer:
     def _read_request(self, conn):
         """Parse ONE request into a uint8 batch. None on a clean peer close
         before any header byte; raises ValueError on protocol faults."""
-        size = self.args.image_size
         try:
             hdr = _recv_exact(conn, 8)
         except ConnectionError:
             return None
+        self.requests_read += 1
+        with tracing.span("serve.read", request=self.requests_read - 1):
+            return self._parse_request(conn, hdr)
+
+    def _parse_request(self, conn, hdr: bytes):
+        size = self.args.image_size
         magic, n = struct.unpack("<II", hdr)
         if not 0 < n <= 65536:
             raise ValueError(f"bad batch size {n}")
@@ -178,8 +224,9 @@ class EmbeddingServer:
         Responses return in request order; the device work of request i
         overlaps the parse of request i+1 when the client pipelines."""
 
-        def _send(emb):
-            conn.sendall(struct.pack("<II", *emb.shape) + emb.tobytes())
+        def _send(emb, request):
+            with tracing.span("serve.send", request=request):
+                conn.sendall(struct.pack("<II", *emb.shape) + emb.tobytes())
 
         pending = None  # dispatched-but-unfetched device work
         while True:
@@ -193,9 +240,9 @@ class EmbeddingServer:
                 err = e
             if pending is not None:
                 emb = self._collect(pending)
-                pending = None
+                request, pending = pending.request, None
                 try:
-                    _send(emb)
+                    _send(emb, request)
                 except OSError:
                     return
             if err is not None:

@@ -14,15 +14,17 @@ stream), runs the 2 + L crop LAFS multi-crop inside the SSL step
 ``log.txt``, checkpoints at ``--saveckp-steps``, at each epoch's end and on
 SIGTERM under ``<output-dir>/ckpt``, and resumes exactly from the latest
 checkpoint when run again. It runs on the card unless ``--device cpu``
-(the tests) and raises without CUDA.
+(the tests) and raises without CUDA. ``--profile-steps N`` runs the run's
+steps 3 to N + 2 under ``torch.profiler`` with the program's spans on
+(``utils/tracing.py``) and writes both, on one timeline, as a Chrome trace
+to ``<output-dir>/profile/``.
 
 Not ported yet, and raising ``NotImplementedError`` (ROADMAP.md, Open
 items): the host PIL multi-crop (running without ``--device-aug``, 1.8),
 the vanilla, overlap and mobile_dino archs (1.13), more than one GPU
 (``--slices``, 1.7), ``--zero1``, ``--optimizer sgd|lars``, a bf16 teacher
 and ``--glo-diff`` (1.13), ``--random-coor`` (1.4), ``--use-bn-in-head``
-(1.5), ``--profile-steps`` (1.14) and orbax ``--landmark-path``
-directories (1.12).
+(1.5) and orbax ``--landmark-path`` directories (1.12).
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ import sys
 import time
 
 import torch
+
+from ..utils import tracing
 
 
 def get_args(argv=None):
@@ -130,7 +134,9 @@ def get_args(argv=None):
                    help="run the 20-crop LAFS augmentation on the card (the "
                         "port's only input path)")
     p.add_argument("--profile-steps", type=int, default=0,
-                   help="device trace of N steps (not ported)")
+                   help="trace N steps (from the run's third) with "
+                        "torch.profiler and the program's spans into "
+                        "<output-dir>/profile as a Chrome trace")
     p.add_argument("--device", default="cuda",
                    help="where to train; 'cpu' only for tests")
     from ..utils.config import apply_toml_defaults
@@ -146,7 +152,6 @@ def check_ported(args) -> None:
         (not args.device_aug,
          "running without --device-aug (the host PIL multi-crop)", "1.8"),
         (args.slices is not None, "--slices (more than one GPU)", "1.7"),
-        (args.profile_steps > 0, "--profile-steps", "1.14"),
     ]
     for bad, what, item in unported:
         if bad:
@@ -196,6 +201,50 @@ def build_config(args, device):
         teacher_dtype=(torch.bfloat16 if args.teacher_dtype == "bfloat16"
                        else torch.float32),
         optimizer=args.optimizer, zero1=args.zero1)
+
+
+class ProfileWindow:
+    """``--profile-steps``: ``torch.profiler`` over ``steps`` steps from the
+    run's third (the first two build and warm up), with the program's spans
+    on; :meth:`close` writes one Chrome trace of both into ``out_dir``."""
+
+    def __init__(self, out_dir: str, steps: int, device):
+        self.dir, self.steps, self.device = out_dir, steps, device
+        self.prof = None
+
+    def before_step(self, ran: int, gstep: int) -> None:
+        """Called before each step; ``ran`` steps of this run came before."""
+        if ran == 2:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self.first, self.was_on = gstep, tracing.ON
+            tracing.enable(True)
+            tracing.reset()
+            self.prof = profile(activities=acts)
+            self.prof.__enter__()
+        elif ran == 2 + self.steps:
+            self.close()
+
+    def close(self) -> None:
+        """Stop the profiler, if it runs, and write the trace."""
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.__exit__(None, None, None)
+        record = tracing.export()
+        tracing.enable(self.was_on)
+        last = max((s["ids"]["step"] for s in record["spans"]
+                    if s["name"] == "ssl.step"), default=self.first)
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir, f"ssl_steps_{self.first}-{last}.json")
+        tracing.write_chrome_trace(path, record, self.prof)
+        self.prof = None
+        print(f"[train_ssl] profile of steps {self.first}-{last}: {path}",
+              flush=True)
 
 
 def main(argv=None) -> int:
@@ -278,6 +327,9 @@ def main(argv=None) -> int:
     logger = MetricLogger()
     jsonl = JSONLLogger(os.path.join(args.output_dir, "log.txt"))
     losses = DeferredLossFetcher(logger, nan_exit=True)
+    window = ProfileWindow(os.path.join(args.output_dir, "profile"),
+                           args.profile_steps, device)
+    ran = 0
     print(f"[train_ssl] start: epoch {start_epoch} step {start_it}, "
           f"{steps_per_epoch} steps of {batch} images an epoch on {device}",
           flush=True)
@@ -291,6 +343,9 @@ def main(argv=None) -> int:
                 f"Epoch [{epoch}/{args.epochs}]",
                 total=steps_per_epoch - skip)):
             gstep = epoch * steps_per_epoch + skip + it
+            if args.profile_steps:
+                window.before_step(ran, gstep)
+            ran += 1
             state, metrics = step_fn(
                 state, landmark, images, None, None, None,
                 lr=float(lr_sched[gstep]), wd=float(wd_sched[gstep]),
@@ -308,6 +363,7 @@ def main(argv=None) -> int:
                 ckpt.save(gstep + 1, ssl_state_payload(state))
                 saving += time.perf_counter() - t_save
             if guard.should_exit(gstep):
+                window.close()
                 losses.flush()
                 ckpt.save(gstep + 1, ssl_state_payload(state))
                 print(f"[preempt] SIGTERM: saved step {gstep + 1}; exiting "
@@ -327,6 +383,7 @@ def main(argv=None) -> int:
               f"{seconds:.2f} s, imgs_per_s={record['imgs_per_s']:.1f} "
               f"(decode, multi-crop and step; checkpoints excluded)",
               flush=True)
+    window.close()  # a run shorter than its profile writes what it ran
     return 0
 
 

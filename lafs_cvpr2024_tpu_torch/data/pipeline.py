@@ -9,10 +9,18 @@ thread reads the next batches' records and decodes each batch on a side
 stream (nvJPEG straight into device memory), up to ``depth`` batches
 ahead of the step that consumes them; the consumer's stream waits on the
 batch's event before the step reads it.
+
+Spans (``utils/tracing.py``, when on), each with ``batch=i`` (the batch's
+place in the epoch): ``input.fetch`` (the records' bytes) and
+``input.decode`` (the decode call, nvJPEG on the side stream) on the
+reading thread, ``input.wait`` (from the consumer's ask until the batch is
+handed out) on the consumer's; the counter ``input.starved`` counts the
+asks that found no batch ready.
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from typing import Iterator
@@ -20,6 +28,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..utils import tracing
 from .decode import decode_batch
 
 
@@ -98,18 +107,21 @@ class Prefetcher:
 
         def produce():
             try:
-                for idx in batches:
+                for i, idx in enumerate(batches, start_step):
                     if stop.is_set():
                         return
-                    jpegs, labels = self.dataset.fetch_batch(idx)
+                    with tracing.span("input.fetch", batch=i):
+                        jpegs, labels = self.dataset.fetch_batch(idx)
                     event = None
                     if cuda:
                         with torch.cuda.stream(side):
-                            images = self.decode(jpegs, labels)
+                            with tracing.span("input.decode", batch=i):
+                                images = self.decode(jpegs, labels)
                             event = torch.cuda.Event()
                             event.record(side)
                     else:
-                        images = self.decode(jpegs, labels)
+                        with tracing.span("input.decode", batch=i):
+                            images = self.decode(jpegs, labels)
                     q.put((images, labels, event))
                 q.put(done)
             except BaseException as e:  # surfaced at the consumer
@@ -118,17 +130,20 @@ class Prefetcher:
         thread = threading.Thread(target=produce, daemon=True)
         thread.start()
         try:
-            while True:
-                item = q.get()
-                if item is done:
-                    break
-                if isinstance(item, BaseException):
-                    raise item
-                images, labels, event = item
-                if event is not None:
-                    stream = torch.cuda.current_stream(self.device)
-                    stream.wait_event(event)
-                    images.record_stream(stream)
+            for i in itertools.count(start_step):
+                with tracing.span("input.wait", batch=i):
+                    if tracing.ON and q.empty():
+                        tracing.count("input.starved")
+                    item = q.get()
+                    if item is done:
+                        break
+                    if isinstance(item, BaseException):
+                        raise item
+                    images, labels, event = item
+                    if event is not None:
+                        stream = torch.cuda.current_stream(self.device)
+                        stream.wait_event(event)
+                        images.record_stream(stream)
                 yield images, labels
         finally:
             stop.set()

@@ -33,6 +33,11 @@ three child seeds drive the landmark jitter/resampling and the dropout of
 the global and local student forwards, and a fourth, keyed by 11 as JAX
 folds 11 into the step key, the device multi-crop.
 
+Spans (``utils/tracing.py``, when on): ``ssl.step`` (``step=k``) around the
+parts ``ssl.multicrop``, ``ssl.tokens``, ``ssl.teacher``, ``ssl.student``
+(forward, DINO loss, backward) and ``ssl.tail``, each both a host span and
+a device span; callers that run the parts one by one record none.
+
 Not ported yet, and raising: the other archs, ``zero1``, ``glo_diff``,
 ``random_coor``, ``use_bn_in_head``, a bf16 teacher, SGD/LARS and more
 than one GPU (ROADMAP.md, Open items).
@@ -56,6 +61,7 @@ from ..models.partfvit import (
     init_random_,
 )
 from ..ops.augment_device import lafs_multicrop_device
+from ..utils import tracing
 from .device import CUDA, resolve
 from .losses import dino_loss
 from .optim import (
@@ -332,24 +338,37 @@ def make_ssl_train_step(cfg: SSLConfig) -> Callable:
 
     def step(state: SSLTrainState, landmark: Tree, glob_clean, glob_aug,
              loc_clean, loc_aug, lr, wd, momentum, teacher_temp, freeze_last):
-        s_land, s_glob, s_loc = step_seeds(state.seed, state.step)
-        if cfg.fused_device_aug:
-            gen = torch.Generator(device=state.center.device).manual_seed(
-                aug_seed(state.seed, state.step))
-            glob_clean, glob_aug, loc_clean, loc_aug = lafs_multicrop_device(
-                glob_clean, gen, local_crops_number=n_loc,
-                out_size=cfg.model.image_size,
-                global_crops_scale=tuple(cfg.global_crops_scale))
-        g_in, l_in = make_tokens(
-            landmark, glob_clean, glob_aug, loc_clean, loc_aug,
-            torch.Generator(device=state.center.device).manual_seed(s_land))
-        teacher_out = teacher_forward(state, g_in)
-        loss, new_center, grads = student_loss_and_grads(
-            state, g_in, l_in, teacher_out, teacher_temp, (s_glob, s_loc))
-        student, opt, teacher = tail(state, grads, lr, wd, momentum,
-                                     freeze_last)
+        k, dev = state.step, state.center.device
+        span, dspan = tracing.span, tracing.device_span
+        with span("ssl.step", step=k):
+            s_land, s_glob, s_loc = step_seeds(state.seed, k)
+            if cfg.fused_device_aug:
+                with (span("ssl.multicrop", step=k),
+                      dspan("ssl.multicrop", dev, step=k)):
+                    gen = torch.Generator(device=dev).manual_seed(
+                        aug_seed(state.seed, k))
+                    glob_clean, glob_aug, loc_clean, loc_aug = (
+                        lafs_multicrop_device(
+                            glob_clean, gen, local_crops_number=n_loc,
+                            out_size=cfg.model.image_size,
+                            global_crops_scale=tuple(cfg.global_crops_scale)))
+            with span("ssl.tokens", step=k), dspan("ssl.tokens", dev, step=k):
+                g_in, l_in = make_tokens(
+                    landmark, glob_clean, glob_aug, loc_clean, loc_aug,
+                    torch.Generator(device=dev).manual_seed(s_land))
+            with (span("ssl.teacher", step=k),
+                  dspan("ssl.teacher", dev, step=k)):
+                teacher_out = teacher_forward(state, g_in)
+            with (span("ssl.student", step=k),
+                  dspan("ssl.student", dev, step=k)):
+                loss, new_center, grads = student_loss_and_grads(
+                    state, g_in, l_in, teacher_out, teacher_temp,
+                    (s_glob, s_loc))
+            with span("ssl.tail", step=k), dspan("ssl.tail", dev, step=k):
+                student, opt, teacher = tail(state, grads, lr, wd, momentum,
+                                             freeze_last)
         return (SSLTrainState(student, teacher, opt, new_center,
-                              state.step + 1, state.seed), {"loss": loss})
+                              k + 1, state.seed), {"loss": loss})
 
     # the parts, for callers that time or compare them one by one
     step.make_tokens = make_tokens

@@ -12,7 +12,8 @@ subprocesses:
   state equal (≤ 1e-6 relative) to an uninterrupted run's: each step is a
   pure function of the state, the seed, the step and its batch;
 - every option that waits for a later PR raises ``NotImplementedError``,
-  and the card is the default device.
+  and the card is the default device;
+- ``--profile-steps`` writes a Chrome trace of the steps it profiled.
 """
 
 import os
@@ -122,11 +123,34 @@ def test_cli_resumes_exactly_after_sigterm(straight, tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--arch", "vit_small"], ["--zero1"], ["--optimizer", "sgd"],
     ["--optimizer", "lars"], ["--teacher-dtype", "bfloat16"], ["--glo-diff"],
-    ["--random-coor"], ["--use-bn-in-head"], ["--slices", "2"],
-    ["--profile-steps", "3"]])
+    ["--random-coor"], ["--use-bn-in-head"], ["--slices", "2"]])
 def test_waiting_options_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_ssl.main([*TINY, "--output-dir", str(tmp_path), *flags])
+
+
+def test_profile_steps_write_a_trace_of_the_steps(tmp_path):
+    """``--profile-steps 2`` on a one-epoch run of 4 steps: steps 2 and 3
+    (the run's third and fourth) in one Chrome trace, the program's spans
+    beside the profiler's ops, and the tracer off again afterwards."""
+    from lafs_cvpr2024_tpu_torch.utils import tracing
+
+    assert train_ssl.main([*TINY, "--output-dir", str(tmp_path),
+                           "--epochs", "1", "--profile-steps", "2"]) == 0
+    assert os.listdir(tmp_path / "profile") == ["ssl_steps_2-3.json"]
+    import json
+
+    doc = json.loads((tmp_path / "profile" / "ssl_steps_2-3.json").read_text())
+    prog = [e for e in doc["traceEvents"] if e["cat"] == "program"]
+    steps = [e for e in prog if e["name"] == "ssl.step"]
+    assert [e["args"]["step"] for e in steps] == [2, 3]
+    for name in ("ssl.multicrop", "ssl.tokens", "ssl.teacher", "ssl.student",
+                 "ssl.tail"):
+        parts = [e for e in prog if e["name"] == name]
+        assert [e["args"]["parent"] for e in parts] == [
+            e["args"]["id"] for e in steps]
+    assert any(e["cat"] == "op" for e in doc["traceEvents"])
+    assert not tracing.ON
 
 
 def test_host_augmentation_raises(tmp_path):
