@@ -27,8 +27,9 @@ one line each:
 3. kernel 2 (LN-fused MLP) against its plain version at the served
    T = 128·197 tokens, 768 → 2048, rate 0, in bf16 and fp32: kernel ms by
    events and on the device (profiler), plain and dense ms, the bound;
-4. the full-width model: the kernel configuration against the plain one,
-   per-row embedding cosine ≥ 1 − 1e-3;
+4. the full-width model: the kernel configuration (kernels 1, 2 and 6, as
+   the eval loader builds it) against the plain one, per-row embedding
+   cosine ≥ 1 − 1e-3;
 5. the port's ``EmbeddingServer`` from a saved ``.pth`` (batch 64, flip on)
    on a unix socket in a thread, three requests (n = 1, 64, 71) through
    ``EmbeddingClient``, the kernels' launch counts on that path, and the
@@ -56,10 +57,11 @@ one line each:
    0 from the same state and tokens: loss within 1e-4 relative, every
    student gradient at cosine ≥ 0.9995;
 9. kernel 6 (fused attention forward) against its plain version at the
-   supervised step's (200, 11, 197, 64) and at S = 128, 130, 256, 257 and
-   512, on strided views of a ``to_qkv`` output, bf16 and fp32: kernel,
-   plain, einsum-path (``torch.matmul`` + softmax) and SDPA ms beside the
-   bound;
+   supervised step's (200, 11, 197, 64), at S = 128, 130, 256, 257 and
+   512, and at the served forward's (512, 11, 197, 64) (a request of 256
+   faces and their flips), on strided views of a ``to_qkv`` output, bf16
+   and fp32: at the supervised and the served shape kernel, plain,
+   einsum-path (``torch.matmul`` + softmax) and SDPA ms beside the bound;
 10. kernel 7 (its backward) the same way: dQ, dK, dV within tolerance and
     finite, kernel, plain, einsum-autograd and SDPA-autograd ms beside the
     bound;
@@ -195,7 +197,8 @@ and 4, and kernel 2's served shape from phase 3), a backward kernel plus
 the products around it beside the dense block's autograd backward
 (kernels 3 and 5), ``F.linear(F.layer_norm(x), W)`` (kernel 8) and kernel
 9 plus dW beside that pair's autograd backward (kernel 9), 4 and 5 the
-first design's time at H = 1,920 and 8 and 9 at O = 2,111.
+first design's time at H = 1,920 and 8 and 9 at O = 2,111. Kernel 6
+carries phase 9's numbers at the served shape (``served``).
 """
 
 from __future__ import annotations
@@ -222,6 +225,7 @@ from lafs_cvpr2024_tpu_torch import _build
 from lafs_cvpr2024_tpu_torch.cli import serve_embeddings
 from lafs_cvpr2024_tpu_torch.cli.evaluate_ijb import load_image_list
 from lafs_cvpr2024_tpu_torch.eval.loading import (
+    infer_partfvit_config,
     load_eval_model,
     make_model_embed,
 )
@@ -366,7 +370,9 @@ KERNELS = {
         source="lafs_cvpr2024_tpu_torch/csrc/mlp_fusion.cu",
         replaces="benchmarks/bench_mlp_fusion.py:54"),
 }
-SERVE_KERNELS = ("patch_gather", "fused_ln_mlp")
+SERVE_KERNELS = ("patch_gather", "fused_ln_mlp", "fused_attention")
+# the plain served model: the eval loader's config with every kernel off
+SERVE_PLAIN = dict(gather_impl="gather", mlp_impl="dense", attn_impl="einsum")
 SSL_KERNELS = ("patch_gather", "fused_ln_mlp", "fused_ln_mlp_bwd")
 SSL_BATCH = 32                         # images per SSL step (bench.py)
 SSL_T = {"global": 2 * SSL_BATCH * 197, "local": 8 * SSL_BATCH * 37}
@@ -390,9 +396,12 @@ SUP_TIMED = 2                          # timed supervised steps per config
 SUP_CONFIGS = {"kernel": ("kernel", "fused_ln", "fused"),
                "plain": ("gather", "dense", "einsum")}
 # (B, H, S) of one attention call of the supervised step, ragged S, the
-# edges of kernel 6's register-resident row (256, 257) and the longest S
+# edges of kernel 6's register-resident row (256, 257) and the longest S;
+# kernel 6 also at one call of the served forward (bench_torch's serving
+# cells: 256 faces a request and their flips)
 ATTN_SHAPES = ((SUP_BATCH, 11, 197), (8, 11, 128), (8, 11, 130),
                (8, 11, 256), (8, 11, 257), (4, 11, 512))
+SERVED_ATTN = (2 * 256, 11, 197)
 ATTN_TOLS = ((torch.bfloat16, 2e-2), (torch.float32, 1e-5))
 ATTN_SCALE = 768 ** -0.5               # the model-dim scale of Attention
 SIM_BATCH = 128                        # cli/train_simmim.py's batch a chip
@@ -1051,9 +1060,12 @@ def einsum_attention(q, k, v, scale: float):
 
 
 def phase_attn(dev, seed: int) -> dict:
-    """Kernel 6 against its plain version; times at the step's shape."""
-    out = {}
-    for i, (b, h, s) in enumerate(ATTN_SHAPES):
+    """Kernel 6 against its plain version; times at the step's shape and
+    at the served one (under ``"served"``)."""
+    out = {"served": {}}
+    for i, (b, h, s) in enumerate(ATTN_SHAPES + (SERVED_ATTN,)):
+        timed = {ATTN_SHAPES[0]: out, SERVED_ATTN: out["served"]}.get(
+            (b, h, s))
         for dtype, tol in ATTN_TOLS:
             q, k, v, _ = attn_operands(dev, dtype, b, h, s, seed + 8 + i)
             got = fused_attention_cuda(q, k, v, ATTN_SCALE)
@@ -1066,7 +1078,7 @@ def phase_attn(dev, seed: int) -> dict:
             ok = rel <= tol and bool(torch.isfinite(got).all())
             name = dtype_name(dtype)
             times = ""
-            if i == 0:
+            if timed is not None:
                 res = dict(max_abs_err=err, rel_err=rel, ms=cuda_ms(
                     lambda: fused_attention_cuda(q, k, v, ATTN_SCALE)),
                     plain_ms=cuda_ms(lambda: fused_attention_plain(
@@ -1078,7 +1090,7 @@ def phase_attn(dev, seed: int) -> dict:
                         q, k, v, scale=ATTN_SCALE)),
                     **bound(4 * b * h * s * s * 64, nbytes(q, k, v, got),
                             dtype))
-                out[name] = res
+                timed[name] = res
                 times = (f" kernel_ms={res['ms']:.4f} plain_ms="
                          f"{res['plain_ms']:.4f} einsum_ms="
                          f"{res['einsum_ms']:.4f} sdpa_ms="
@@ -1727,8 +1739,17 @@ def full_width(gather_impl: str, mlp_impl: str) -> PartFViT:
                                    gather_impl=gather_impl, mlp_impl=mlp_impl))
 
 
+def served_cfg(cfg: PartFViTConfig, config: str) -> PartFViTConfig:
+    """The eval loader's ``cfg`` (the kernel configuration), or the plain
+    one on the same architecture."""
+    return cfg if config == "kernel" else dataclasses.replace(cfg,
+                                                              **SERVE_PLAIN)
+
+
 def build(config: str, state: dict, dev, dtype=torch.bfloat16) -> PartFViT:
-    model = full_width(*CONFIGS[config])
+    """The served model on ``state`` as the eval loader builds it, or the
+    plain one."""
+    model = PartFViT(served_cfg(infer_partfvit_config(state), config))
     model.load_state_dict(state, strict=True)
     return model.eval().to(dev, dtype)
 
@@ -2623,10 +2644,8 @@ def phase_mlp_fusion(dev, seed: int) -> dict:
 def eval_model(loaded, config: str, dev) -> PartFViT:
     """A fresh copy on ``dev`` of the model the eval CLIs load from phase
     5's ``.pth`` (``loaded``, on the CPU): the kernel configuration, or
-    the plain one (``gather``, ``dense``)."""
-    cfg = loaded.cfg if config == "kernel" else dataclasses.replace(
-        loaded.cfg, gather_impl="gather", mlp_impl="dense")
-    model = PartFViT(cfg)
+    the plain one (``gather``, ``dense``, ``einsum``)."""
+    model = PartFViT(served_cfg(loaded.cfg, config))
     model.load_state_dict(loaded.model.state_dict(), strict=True)
     return model.eval().to(dev)
 
@@ -2734,6 +2753,7 @@ def phase_eval(dev, pth: str) -> dict:
     ok = (got.shape == want.shape and got.shape[0] == 64 and names_ok and cos.min() >= 1 - 1e-3
           and launches["extract"].get("patch_gather", 0) > 0
           and launches["extract"].get("fused_ln_mlp", 0) > 0
+          and launches["extract"].get("fused_attention", 0) > 0
           and np.isfinite(acc) and acc == val.accuracy
           and len(table) == 6 and np.isfinite(table).all()
           and warp_diff[0] <= 1.0)
@@ -2874,9 +2894,13 @@ def main(argv=None) -> int:
     # a backward kernel plus the products around it beside the dense
     # autograd backward, the like-for-like pair), their device time, 4, 5,
     # 8 and 9 the first design's time at the nearest width it takes, and
-    # kernel 2 its served shape
+    # kernels 2 and 6 their served shapes
     bwd = measured["fused_ln_mlp_bwd"]
     yardsticks = {
+        "fused_attention": dict(served={
+            k: attn["served"]["bfloat16"][k]
+            for k in ("ms", "rel_err", "plain_ms", "einsum_ms", "library_ms",
+                      "bound_ms", "bound_by")}),
         "fused_ln_mlp": dict(
             device_ms=measured["fused_ln_mlp"]["device_ms"],
             dense_ms=measured["fused_ln_mlp"]["dense_ms"],

@@ -128,7 +128,10 @@ def _infer_heads(inner: int, heads, dim_head):
 def infer_partfvit_config(state_dict: Dict[str, Any], **overrides
                           ) -> PartFViTConfig:
     """Derive a :class:`PartFViTConfig` from reference ``state_dict`` keys
-    (prefix-stripped). Keyword overrides win over inference."""
+    (prefix-stripped). Keyword overrides win over inference. The eval
+    models' attention is ``'fused'``: kernel 6 where the sequence and head
+    width fit it (:class:`~..models.layers.Attention`), the einsum path
+    elsewhere."""
 
     def need(key):
         if key not in state_dict:
@@ -193,7 +196,8 @@ def infer_partfvit_config(state_dict: Dict[str, Any], **overrides
             ov.pop(key, None)
     if ov:
         raise TypeError(f"unknown config overrides: {sorted(ov)}")
-    return PartFViTConfig(loss_type="None", num_classes=0, **cfg)
+    return PartFViTConfig(loss_type="None", num_classes=0, attn_impl="fused",
+                          **cfg)
 
 
 def _family(state_dict) -> str:

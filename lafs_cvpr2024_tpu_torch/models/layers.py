@@ -22,9 +22,10 @@ import torch
 from torch import nn
 
 from ..ops.flash_attention import flash_attention
-from ..ops.fused_attention import fused_attention
+from ..ops.fused_attention import HEAD_DIM, MAX_SEQ, fused_attention
 from ..ops.fused_ln_linear import fused_ln_linear
 from ..ops.fused_mlp import fused_ln_mlp, fused_mlp
+from ..utils import tracing
 
 ATTN_IMPLS = ("einsum", "fused", "flash", "lnqkv")
 MLP_IMPLS = ("dense", "fused", "fused_ln")
@@ -124,10 +125,13 @@ class FeedForward(nn.Module):
 class Attention(nn.Module):
     """Multi-head self-attention. ``attn_impl='einsum'``: the score and
     value products stay ``torch.matmul``, as the JAX default leaves them to
-    XLA. ``'fused'``: sequences of 128 to 512 tokens go through
-    ``ops.fused_attention`` (kernels 6 and 7 on the card; fp32 softmax),
-    shorter and longer ones through the einsum path, as the JAX layer
-    chooses (``layers.py:218``). ``'flash'``: every length through
+    XLA. ``'fused'``: sequences of 128 to 512 tokens in heads of
+    ``ops.fused_attention.HEAD_DIM`` (64) go through ``ops.fused_attention``
+    (kernels 6 and 7 on the card; fp32 softmax), as the JAX layer chooses
+    by length (``layers.py:218``); other lengths and head widths take the
+    einsum path and count ``attn.fused_fallback`` (``utils/tracing.py``).
+    The supervised step and every eval model (``eval/loading.py``) run
+    it. ``'flash'``: every length through
     ``ops.flash_attention`` (kernels 11a-c on the card), as the JAX layer
     sends every length to its flash path (``layers.py:226-227``).
     ``'lnqkv'``: the caller passes the
@@ -158,11 +162,14 @@ class Attention(nn.Module):
             t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
             for t in qkv.chunk(3, dim=-1)
         )
-        if self.attn_impl == "fused" and 128 <= n <= 512:
+        fused = self.attn_impl == "fused"
+        if fused and 128 <= n <= MAX_SEQ and self.dim_head == HEAD_DIM:
             out = fused_attention(q, k, v, self.scale)
         elif self.attn_impl == "flash":
             out = flash_attention(q, k, v, self.scale)
         else:
+            if fused:
+                tracing.count("attn.fused_fallback")
             attn = (torch.matmul(q, k.transpose(-1, -2)) * self.scale
                     ).softmax(-1)
             out = torch.matmul(attn, v)

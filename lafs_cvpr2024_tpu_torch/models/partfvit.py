@@ -43,7 +43,10 @@ class PartFViTConfig:
     ``mlp_impl='fused_ln'``), which run their plain PyTorch versions only
     for CPU tensors; ``'gather'``/``'dense'`` is the plain configuration.
     ``attn_impl='fused'`` (kernels 6 and 7) is the supervised step's
-    default (``train/supervised.py``), ``'einsum'`` the served one."""
+    default (``train/supervised.py``) and the eval models' (kernel 6:
+    ``eval/loading.py::infer_partfvit_config``, which every eval CLI and
+    the server load through); ``'einsum'``, the dataclass default, stays
+    the SSL step's unless its config says otherwise."""
 
     image_size: int = 112
     patch_size: int = 8

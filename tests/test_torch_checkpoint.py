@@ -37,7 +37,7 @@ ARCH = dict(dim=128, depth=2, heads=2, dim_head=64, mlp_dim=256,
             num_patches=16, image_size=32, loss_type="None", num_classes=0)
 # the port serves through its kernels by default; every other field of the
 # inferred config must match the JAX package's
-_IMPL_FIELDS = {"gather_impl", "mlp_impl"}
+_IMPL_FIELDS = {"gather_impl", "mlp_impl", "attn_impl"}
 
 
 @pytest.fixture(scope="module", params=["small", "large"])
@@ -90,6 +90,7 @@ def test_infer_matches_jax(jax_tree):
                                   "pool": "mean"}):
         got = dataclasses.asdict(infer_partfvit_config(sd, **ov))
         want = dataclasses.asdict(jax_infer(v["params"], **ov))
+        assert got["attn_impl"] == "fused", ov  # the eval models' choice
         for name in _IMPL_FIELDS:
             got.pop(name), want.pop(name)
         assert got == want, ov

@@ -27,7 +27,10 @@ torch.profiler session before it. Dropout masks are the same bits: the kernels a
 versions hash the same keys. The fused attention forward and backward
 agree to 1e-5 relative in fp32 and 2e-2 in bf16 (fp32 logits and softmax in
 both; the products accumulate in another order, and bf16 A and dS may
-round one ulp apart), and stay finite with logits up to 80. So do the flash attention forward and its two
+round one ulp apart), and stay finite with logits up to 80; at the
+served shape (512, 11, 197, 64) under inference mode too, and a served
+Part-fViT-B forward loaded by ``load_eval_model`` launches kernel 6 once
+in each of its 12 blocks. So do the flash attention forward and its two
 backward kernels (11a-c) at any length N, the logsumexp and 11c's
 statistics scratch within 1e-5 (its padded rows exactly +inf and 0); the
 backward runs 11c, then 11b, and no other kernel, and two launches of each
@@ -43,11 +46,14 @@ fixture lie within a mean of 1 level of the numpy ``norm_crop`` of PIL's
 decode.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from lafs_cvpr2024_tpu_torch import _build
+from lafs_cvpr2024_tpu_torch.eval.loading import load_eval_model
 from lafs_cvpr2024_tpu_torch.models.partfvit import (
     PartFViT,
     PartFViTConfig,
@@ -104,6 +110,7 @@ from lafs_cvpr2024_tpu_torch.ops.patch_gather import (
     patch_gather,
     patch_gather_plain,
 )
+from lafs_cvpr2024_tpu_torch.utils import tracing
 
 pytestmark = pytest.mark.cuda
 
@@ -472,6 +479,56 @@ def test_fused_attention_kernel_refuses_shapes_it_does_not_take(cuda):
     y = torch.zeros(1, 2, 16, 32, device=cuda)
     with pytest.raises(ValueError, match="D = 64"):
         fused_attention(y, y, y, 0.1)
+
+
+def test_fused_attention_kernel_at_the_served_shape(cuda):
+    """Kernel 6 as the served forward calls it: 512 rows (256 faces and
+    their flips) of 197 tokens in 11 heads, strided ``to_qkv`` views, the
+    model's scale, through ``fused_attention`` under inference mode; O
+    within 2e-2 of the plain version, one launch, a (B, S, H, D) view."""
+    q, k, v, _ = _attn_operands(cuda, torch.bfloat16, 512, 11, 197)
+    scale = 768 ** -0.5
+    before = _build.LAUNCHES["fused_attention"]
+    with torch.inference_mode():
+        got = fused_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_attention"] == before + 1
+    want = fused_attention_plain(q, k, v, scale)
+    assert got.shape == (512, 11, 197, 64) and got.dtype == torch.bfloat16
+    assert got.transpose(1, 2).is_contiguous()
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= 2e-2
+
+
+def test_served_forward_launches_kernel_6_once_a_block(cuda, tmp_path):
+    """A Part-fViT-B ``.pth`` through ``load_eval_model``, in bf16 under
+    inference mode, traced: 12 kernel 6 launches a forward, no fallback
+    to the einsum path, embeddings at cosine ≥ 1 − 1e-3 of the same
+    weights with ``attn_impl='einsum'``."""
+    pth = str(tmp_path / "partfvit_b.pth")
+    cfg = PartFViTConfig(loss_type="None", num_classes=0)
+    torch.save(init_random_(PartFViT(cfg), 3).state_dict(), pth)
+    loaded = load_eval_model(pth, device=cuda, log=lambda _: None)
+    model = loaded.model.to(torch.bfloat16)
+    plain = PartFViT(dataclasses.replace(loaded.cfg, attn_impl="einsum"))
+    plain.load_state_dict(loaded.model.state_dict())
+    plain.eval().to(cuda, torch.bfloat16)
+    x = (torch.rand(4, 112, 112, 3, device=cuda) - 0.5).to(torch.bfloat16)
+    tracing.enable(True)
+    tracing.reset()
+    try:
+        with torch.inference_mode():
+            got = model(x).float()
+        torch.cuda.synchronize()
+        counters = tracing.export()["counters"]
+    finally:
+        tracing.enable(False)
+        tracing.reset()
+    assert counters.get("launch.fused_attention") == 12
+    assert "attn.fused_fallback" not in counters
+    with torch.inference_mode():
+        want = plain(x).float()
+    assert torch.nn.functional.cosine_similarity(got, want).min() >= 1 - 1e-3
 
 
 # ------------------------------------------------ kernels 4 and 5 (fused) --

@@ -13,6 +13,12 @@
   package's on the same weights (tiny Part-fViT, fp32, uint8 batches
   scaled inside the embed function): identical accuracy and threshold,
   xnorm within 1e-5 relative (fp32 in another summation order).
+- ``load_eval_model`` builds every eval model with ``attn_impl='fused'``:
+  kernel 6 (its plain version on the CPU) at 128-512 tokens in heads of
+  64, the einsum path otherwise (each such block counts
+  ``attn.fused_fallback`` with the tracer on, nothing with it off); either
+  way the embeddings match the JAX model's (einsum attention) on the same
+  ``.pth`` to cosine ≥ 1 − 1e-5.
 """
 
 import dataclasses
@@ -27,7 +33,12 @@ import torch
 
 from lafs_cvpr2024_tpu.eval import ijb as jax_ijb
 from lafs_cvpr2024_tpu.eval import verification as jax_ver
+from lafs_cvpr2024_tpu.models.partfvit import PartFViT as JaxPartFViT
 from lafs_cvpr2024_tpu.models.partfvit import PartFViTConfig as JaxConfig
+from lafs_cvpr2024_tpu.train.checkpoint import (
+    export_torch_state_dict,
+    save_torch_state_dict,
+)
 from lafs_cvpr2024_tpu.train import supervised as jax_sup
 from lafs_cvpr2024_tpu_torch import eval as port_eval
 from lafs_cvpr2024_tpu_torch.data.dataset import FaceRecordDataset
@@ -42,6 +53,7 @@ from lafs_cvpr2024_tpu_torch.train.checkpoint import (
     state_dict_from_flax,
     to_tensors,
 )
+from lafs_cvpr2024_tpu_torch.utils import tracing
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REC = os.path.join(ROOT, "tests", "data", "ssl_rec", "train.rec")
@@ -288,3 +300,48 @@ def test_perform_val_with_make_embed_fn_equals_jax(tmp_path):
         batch_size=12, nrof_folds=4)
     np.testing.assert_allclose(host.xnorm, got.xnorm, rtol=1e-6)
     assert host.accuracy == got.accuracy
+
+
+@pytest.mark.parametrize("traced", [True, False])
+@pytest.mark.parametrize("num_patches,overrides,fallbacks", [
+    (143, {}, 0),             # 144 tokens in heads of 64: kernel 6
+    (36, {}, 2),              # 37 tokens: the einsum path in both blocks
+    (520, {}, 2),             # 521 tokens: over kernel 6's 512
+    (143, {"heads": 4}, 2),   # heads of 32 (--heads 4): the einsum path
+])
+def test_eval_models_take_kernel_6_where_it_fits(tmp_path, num_patches,
+                                                 overrides, fallbacks,
+                                                 traced):
+    arch = dict(dim=128, depth=2, heads=2, dim_head=64, mlp_dim=256,
+                num_patches=num_patches, image_size=48, stn_mode="small",
+                loss_type="None", num_classes=0)
+    v = jax.jit(JaxPartFViT(JaxConfig(**arch)).init)(
+        jax.random.PRNGKey(5), jnp.zeros((1, 48, 48, 3)))
+    v = jax.tree_util.tree_map(np.asarray, v)
+    path = str(tmp_path / "model.pth")
+    save_torch_state_dict(
+        export_torch_state_dict(v["params"], v["batch_stats"]), path)
+    loaded = port_eval.load_eval_model(path, {"image_size": 48, **overrides},
+                                       device="cpu", log=lambda _: None)
+    cfg = loaded.cfg
+    assert cfg.attn_impl == "fused"
+    x = np.random.default_rng(6).uniform(-0.5, 0.5, (3, 48, 48, 3))
+    x = x.astype(np.float32)
+    jax_model = JaxPartFViT(JaxConfig(**{**arch, "heads": cfg.heads,
+                                         "dim_head": cfg.dim_head}))
+    want = np.asarray(jax.jit(lambda v, x: jax_model.apply(v, x, train=False))(
+        v, jnp.asarray(x)))
+    tracing.enable(traced)
+    tracing.reset()
+    try:
+        with torch.inference_mode():
+            got = loaded.model(torch.from_numpy(x)).numpy()
+        counters = tracing.export()["counters"]
+    finally:
+        tracing.enable(False)
+        tracing.reset()
+    assert counters == ({"attn.fused_fallback": fallbacks}
+                        if traced and fallbacks else {})
+    cos = (got * want).sum(1) / np.linalg.norm(got, axis=1) \
+        / np.linalg.norm(want, axis=1)
+    assert cos.min() >= 1 - 1e-5

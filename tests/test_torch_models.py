@@ -5,6 +5,15 @@ on 48×48 images, MobileNetV3-large stem) is initialised once per module;
 its tree goes through ``state_dict_from_flax`` into the port's modules
 with ``load_state_dict(strict=True)``, and both packages run the same
 numpy inputs in fp32. Embeddings must agree to cosine ≥ 1 − 1e-5.
+
+Part-fViT-B's eval forward (every width as served, 12 blocks) with its
+attention ``'fused'`` (kernel 6's plain version here) agrees with
+``'einsum'`` on the same weights to 1e-5 relative in fp32 (measured
+≤ 5.7e-7) and to cosine ≥ 1 − 2e-4 a row in bf16 (measured ≤ 5.2e-5 over
+three seeds: the einsum path rounds scores and probabilities to bf16, the
+fused one keeps them fp32). ``'fused'`` takes the kernel only at 128 to
+512 tokens in heads of 64; elsewhere it runs the einsum path itself
+(``tests/test_torch_eval.py`` counts ``attn.fused_fallback`` there).
 """
 
 import jax
@@ -19,6 +28,7 @@ from lafs_cvpr2024_tpu.models.mobilenet import (
 from lafs_cvpr2024_tpu.models.partfvit import LandmarkRegressor as JaxRegressor
 from lafs_cvpr2024_tpu.models.partfvit import PartFViT as JaxPartFViT
 from lafs_cvpr2024_tpu.models.partfvit import PartFViTConfig as JaxConfig
+from lafs_cvpr2024_tpu_torch.models import layers
 from lafs_cvpr2024_tpu_torch.models.partfvit import (
     LandmarkRegressor,
     PartFViT,
@@ -164,3 +174,53 @@ def test_init_random_is_seeded_and_finite():
     with torch.no_grad():
         out = emb(torch.rand(2, 48, 48, 3) - 0.5)
     assert out.shape == (2, 128) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_eval_forward_matches_einsum_at_full_width(dtype):
+    cfg = dict(loss_type="None", num_classes=0)  # Part-fViT-B as served
+    state = init_random_(PartFViT(PartFViTConfig(**cfg)), seed=7).state_dict()
+    x = torch.rand(2, 112, 112, 3, generator=torch.Generator().manual_seed(5))
+    out = {}
+    for impl in ("fused", "einsum"):
+        model = PartFViT(PartFViTConfig(**cfg, attn_impl=impl))
+        model.load_state_dict(state, strict=True)
+        model.eval().to(dtype)
+        with torch.inference_mode():
+            out[impl] = model((x - 0.5).to(dtype)).double()
+    got, want = out["fused"], out["einsum"]
+    assert got.shape == (2, 768) and bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    else:
+        assert _cos(got.numpy(), want.numpy()).min() >= 1 - 2e-4
+
+
+@pytest.mark.parametrize("dim_head,n,takes", [
+    (64, 150, True),    # the kernel's window and head width
+    (32, 150, False),   # heads of 32 (a --dim-head checkpoint)
+    (64, 100, False),   # under 128 tokens
+    (64, 513, False),   # over 512
+])
+def test_fused_attention_falls_back_where_kernel_6_does_not_take(
+        monkeypatch, dim_head, n, takes):
+    calls = []
+
+    def counted(*args):
+        calls.append(args[0].shape)
+        return real(*args)
+
+    real = layers.fused_attention
+    monkeypatch.setattr(layers, "fused_attention", counted)
+    torch.manual_seed(0)
+    fused = layers.Attention(128, 2, dim_head, attn_impl="fused").eval()
+    einsum = layers.Attention(128, 2, dim_head, attn_impl="einsum").eval()
+    einsum.load_state_dict(fused.state_dict())
+    x = torch.randn(2, n, 128)
+    with torch.inference_mode():
+        got, want = fused(x), einsum(x)
+    assert len(calls) == int(takes)
+    if takes:
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    else:
+        assert torch.equal(got, want)

@@ -185,9 +185,11 @@ def test_served_request_spans_share_its_id_and_count_padded_rows(server):
                         if s["ids"].get("request") == rid),
                        key=lambda s: s["start_ns"])
         assert [s["name"] for s in spans] == list(SERVE)
-    # batch 8 with the flip: 3 faces forward 16 rows, 11 faces 32
+    # batch 8 with the flip: 3 faces forward 16 rows, 11 faces 32; three
+    # forwards of 37 tokens, each block's attention off kernel 6's window
     assert rec["counters"] == {"serve.rows": 48, "serve.faces": 14,
-                               "serve.requests": 2}
+                               "serve.requests": 2,
+                               "attn.fused_fallback": 3 * ARCH["depth"]}
 
 
 def test_padded_request_rows_per_face(server):
