@@ -10,20 +10,23 @@ as XLA einsums). The JAX function's documented deviations from the PIL
 transform stay: single-try crops with clamping, the jitter's sub-ops in a
 fixed order, the exact HSV hue rotation.
 
-Each op is split into a draw (``draw_*``: its random numbers from a
-``torch.Generator`` on the images' device) and an apply (``*_apply``: a
-pure function of the images and the drawn tensors), so a test can feed an
-apply the numbers ``jax.random`` drew and compare with the JAX op, whose
-random stream torch cannot reproduce. Images are NHWC float32 in [0, 1]
-inside; the multi-crop returns [-1, 1] crops.
+The draws (``draw_lafs_multicrop``: random numbers from a
+``torch.Generator`` on the images' device) are apart from the ops
+(``*_apply``: pure functions of the images and the drawn tensors), so a
+test can feed an op the numbers ``jax.random`` drew and compare with the
+JAX op, whose random stream torch cannot reproduce. The multi-crop runs
+each op once over the rows of all its crop pairs: the host issues a few
+hundred small ops a batch, not a few hundred a pair. Images are NHWC
+float32 in [0, 1] inside; the multi-crop returns [-1, 1] crops.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
 
 import torch
+
+from ..utils import tracing
 
 #: ImageNet statistics — the vanilla-DINO convention (``lafs_train.py:
 #: 751-753``) for ``--arch vit_*`` checkpoints.
@@ -57,16 +60,10 @@ def scale_uint8(x: torch.Tensor, mode: str = "unit") -> torch.Tensor:
     )
 
 
-def _uniform(gen, shape, lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
-    """U[lo, hi) in fp32 on ``gen``'s device, formed as ``jax.random.
-    uniform`` forms it from a U[0, 1) draw."""
-    u = torch.rand(shape, generator=gen, device=gen.device, dtype=_F32)
-    return u * (hi - lo) + lo
-
-
-def _bernoulli(gen, p: float, b: int) -> torch.Tensor:
-    """(b, 1, 1, 1) bool, True with probability ``p``."""
-    return _uniform(gen, (b, 1, 1, 1)) < p
+def _rand(gen, shape) -> torch.Tensor:
+    """U[0, 1) in fp32 on ``gen``'s device, ``jax.random.uniform``'s base
+    draw."""
+    return torch.rand(shape, generator=gen, device=gen.device, dtype=_F32)
 
 
 # ---------------------------------------------------------------------------
@@ -102,27 +99,20 @@ def _resize_matrix(starts, sizes, in_size: int, out_size: int):
     return m
 
 
-def draw_crop(gen, b: int, h: int, w: int, scale=(0.4, 1.0),
-              ratio=(3 / 4, 4 / 3)) -> Dict[str, torch.Tensor]:
-    """The draws of ``random_resized_crop_batch``: the crop area, its log
-    aspect ratio and the two uniform offsets, each (b,)."""
-    return dict(area=h * w * _uniform(gen, (b,), scale[0], scale[1]),
-                log_r=_uniform(gen, (b,), math.log(ratio[0]),
-                               math.log(ratio[1])),
-                ux=_uniform(gen, (b,)), uy=_uniform(gen, (b,)))
-
-
 def random_resized_crop_apply(images, out_size: int, area, log_r, ux, uy):
-    """Batched bicubic RandomResizedCrop (B, H, W, C) → (B, S, S, C) of
-    one drawn box per image (``random_resized_crop_batch``)."""
-    _, h, w, _ = images.shape
+    """Batched bicubic RandomResizedCrop (B, H, W, C) → (P·B, S, S, C) of
+    one drawn box per row of the draws (``random_resized_crop_batch`` for
+    P = 1): P·B rows, pair-major, crop the batch P times without copying
+    it P times."""
+    b, h, w, c = images.shape
     aspect = torch.exp(log_r)
     cw = torch.clamp(torch.round(torch.sqrt(area * aspect)), 1, w)
     ch = torch.clamp(torch.round(torch.sqrt(area / aspect)), 1, h)
-    my = _resize_matrix(uy * (h - ch), ch, h, out_size)   # (B, S, H)
-    mx = _resize_matrix(ux * (w - cw), cw, w, out_size)   # (B, S, W)
-    tmp = torch.einsum("boh,bhwc->bowc", my, images)
-    return torch.einsum("bpw,bowc->bopc", mx, tmp)
+    my = _resize_matrix(uy * (h - ch), ch, h, out_size)   # (P·B, S, H)
+    mx = _resize_matrix(ux * (w - cw), cw, w, out_size)   # (P·B, S, W)
+    tmp = torch.einsum("pboh,bhwc->pbowc", my.view(-1, b, out_size, h), images)
+    return torch.einsum("npw,nowc->nopc", mx,
+                        tmp.reshape(-1, out_size, w, c)).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -130,7 +120,8 @@ def random_resized_crop_apply(images, out_size: int, area, log_r, ux, uy):
 # ---------------------------------------------------------------------------
 
 def _grayscale(x):
-    luma = torch.tensor(_LUMA, dtype=x.dtype, device=x.device)
+    # an asynchronous copy: a blocking one waits for the card's queue
+    luma = torch.tensor(_LUMA, dtype=x.dtype).to(x.device, non_blocking=True)
     return torch.einsum("...c,c->...", x, luma)[..., None].expand_as(x)
 
 
@@ -157,24 +148,14 @@ def _hsv_to_rgb(h, s, v):
     p = v * (1 - s)
     q = v * (1 - s * f)
     t = v * (1 - s * (1 - f))
-    i = torch.remainder(i.long(), 6)[..., None]
+    i = torch.remainder(i.long(), 6)[None]
 
+    # stacked along a new first dim: contiguous copies, not strided ones
     def pick(*vals):
-        return torch.stack(vals, dim=-1).gather(-1, i)[..., 0]
+        return torch.stack(vals).gather(0, i)[0]
 
     return torch.stack([pick(v, q, p, p, t, v), pick(t, v, v, q, p, p),
                         pick(p, p, t, v, v, q)], dim=-1)
-
-
-def draw_color_jitter(gen, b: int, brightness=0.4, contrast=0.4,
-                      saturation=0.2, hue=0.1) -> Dict[str, torch.Tensor]:
-    """Per-image factors of ``color_jitter_batch``: fb, fc, fs (b, 1, 1, 1)
-    and the hue shift fh (b, 1, 1)."""
-    s = (b, 1, 1, 1)
-    return dict(fb=_uniform(gen, s, 1 - brightness, 1 + brightness),
-                fc=_uniform(gen, s, 1 - contrast, 1 + contrast),
-                fs=_uniform(gen, s, 1 - saturation, 1 + saturation),
-                fh=_uniform(gen, (b, 1, 1), -hue, hue))
 
 
 def color_jitter_apply(x, fb, fc, fs, fh):
@@ -206,13 +187,6 @@ def _banded(wts, size: int):
     return m / torch.clamp(m.sum(dim=2, keepdim=True), min=1e-8)
 
 
-def draw_blur(gen, b: int, p: float, radius_min=0.1,
-              radius_max=2.0) -> Dict[str, torch.Tensor]:
-    """``gaussian_blur_batch``'s draws: sigma (b,) and the apply mask."""
-    return dict(sigma=_uniform(gen, (b,), radius_min, radius_max),
-                apply=_bernoulli(gen, p, b))
-
-
 def gaussian_blur_apply(x, sigma, apply, taps: int = 9):
     """PIL GaussianBlur with a per-image sigma as two banded-matrix
     products, where ``apply`` (``gaussian_blur_batch``)."""
@@ -240,61 +214,81 @@ def random_flip_apply(x, mask):
 # the full LAFS multi-crop
 # ---------------------------------------------------------------------------
 
-def _pair_probs(i: int) -> Tuple[float, float]:
-    """(blur, solarize) probabilities of crop pair i (global 1, global 2,
-    locals), as ``lafs_multicrop_device`` sets them."""
-    return (1.0, 0.0) if i == 0 else ((0.1, 0.2) if i == 1 else (0.5, 0.0))
+#: One crop pair's draws in the order the generator makes them (the crop
+#: box, flip, jitter, its four factors, grayscale, blur sigma and mask;
+#: global 2 then draws its solarize mask), each (b,) + (1,) * (ndim − 1).
+_DRAWS = (("area", 1), ("log_r", 1), ("ux", 1), ("uy", 1), ("flip", 4),
+          ("jitter", 4), ("fb", 4), ("fc", 4), ("fs", 4), ("fh", 3),
+          ("gray", 4), ("sigma", 1), ("blur", 4))
+#: U[lo, hi) of the draws that are not kept as drawn or compared
+_RANGES = dict(log_r=(math.log(3 / 4), math.log(4 / 3)), fb=(0.6, 1.4),
+               fc=(0.6, 1.4), fs=(0.8, 1.2), fh=(-0.1, 0.1), sigma=(0.1, 2.0))
+#: blur probability of global 1, global 2 and the local crops
+_BLUR_P = (1.0, 0.1, 0.5)
+#: solarize probability of global 2 (the other crops never solarize)
+_SOLARIZE_P = 0.2
 
 
 def draw_lafs_multicrop(gen, b: int, h: int, w: int,
                         local_crops_number: int = 8,
-                        global_crops_scale=(0.4, 1.0)) -> List[dict]:
-    """The draws of every crop pair of :func:`lafs_multicrop_apply`: the
-    crop box, flip, jitter (applied with probability 0.8), grayscale, blur
-    and solarize (only where its probability is > 0)."""
-    draws = []
-    for i in range(2 + local_crops_number):
-        blur_p, solarize_p = _pair_probs(i)
-        d = dict(crop=draw_crop(gen, b, h, w, global_crops_scale),
-                 flip=_bernoulli(gen, 0.5, b), jitter=_bernoulli(gen, 0.8, b),
-                 color=draw_color_jitter(gen, b), gray=_bernoulli(gen, 0.2, b),
-                 blur=draw_blur(gen, b, blur_p))
-        if solarize_p > 0:
-            d["solarize"] = _bernoulli(gen, solarize_p, b)
-        draws.append(d)
-    return draws
-
-
-def _jitter_gray(x, d):
-    """flip_and_color_jitter minus the flip (``lafs_train.py:792-798``)."""
-    x = torch.where(d["jitter"], color_jitter_apply(x, **d["color"]), x)
-    return random_grayscale_apply(x, d["gray"])
-
-
-def _emit_pair(geo, d):
-    """One (clean, aug) pair in [-1, 1] from a shared crop in [0, 1]."""
-    aug = gaussian_blur_apply(_jitter_gray(geo, d), **d["blur"])
-    if "solarize" in d:
-        aug = solarize_apply(aug, d["solarize"])
-    return geo * 2.0 - 1.0, aug * 2.0 - 1.0
+                        global_crops_scale=(0.4, 1.0)) -> dict:
+    """The draws of :func:`lafs_multicrop_apply` for its P = 2 + L crop
+    pairs, one row per (pair, image), pair-major: the crop box, flip,
+    jitter (applied with probability 0.8) and its factors, grayscale, blur
+    and solarize (False outside global 2). ``gen`` is called pair by pair
+    in a fixed order and shapes, the stream the benchmark's reference
+    repeats; the ranges and comparisons are formed once over all rows."""
+    n = 2 + local_crops_number
+    u = {k: [] for k, _ in _DRAWS}
+    for i in range(n):
+        for k, nd in _DRAWS:
+            u[k].append(_rand(gen, (b,) + (1,) * (nd - 1)))
+        if i == 1:
+            u_sol = _rand(gen, (b, 1, 1, 1))
+    u = {k: torch.cat(v) for k, v in u.items()}
+    r = {k: u[k] * (hi - lo) + lo for k, (lo, hi) in _RANGES.items()}
+    lo, hi = global_crops_scale
+    blur_p = torch.full((n, 1, 1, 1, 1), _BLUR_P[2], dtype=_F32,
+                        device=gen.device)
+    blur_p[0], blur_p[1] = _BLUR_P[0], _BLUR_P[1]
+    solarize = torch.zeros((n * b, 1, 1, 1), dtype=torch.bool,
+                           device=gen.device)
+    solarize[b:2 * b] = u_sol < _SOLARIZE_P
+    return dict(
+        crop=dict(area=h * w * (u["area"] * (hi - lo) + lo),
+                  log_r=r["log_r"], ux=u["ux"], uy=u["uy"]),
+        flip=u["flip"] < 0.5, jitter=u["jitter"] < 0.8,
+        color=dict(fb=r["fb"], fc=r["fc"], fs=r["fs"], fh=r["fh"]),
+        gray=u["gray"] < 0.2,
+        blur=dict(sigma=r["sigma"],
+                  apply=(u["blur"].view(n, b, 1, 1, 1) < blur_p).view(
+                      n * b, 1, 1, 1)),
+        solarize=solarize)
 
 
 def lafs_multicrop_apply(images_uint8, draws, out_size: int = 112):
     """(B, H, W, 3) uint8 → ``(glob_clean, glob_aug, loc_clean, loc_aug)``,
-    (2, B, S, S, 3) and (L, B, S, S, 3) float32 in [-1, 1], for drawn
-    parameters. Each (clean, aug) pair shares its crop and flip, the
-    landmark-consistency property of LAFS; local crops use the global
-    scale at full resolution (``lafs_train.py:852-858``)."""
+    (2, B, S, S, 3) and (L, B, S, S, 3) float32 in [-1, 1], for the drawn
+    rows of :func:`draw_lafs_multicrop`. Each (clean, aug) pair shares its
+    crop and flip, the landmark-consistency property of LAFS; local crops
+    use the global scale at full resolution (``lafs_train.py:852-858``).
+    Every op runs once over the P·B rows of all pairs: the pairs differ
+    only in their draws."""
+    b = images_uint8.shape[0]
+    n = draws["flip"].shape[0] // b
+    tracing.count("multicrop.pairs", n)
     x = images_uint8.to(_F32) / 255.0
-    cleans, augs = [], []
-    for d in draws:
-        geo = random_resized_crop_apply(x, out_size, **d["crop"])
-        geo = random_flip_apply(torch.clamp(geo, 0.0, 1.0), d["flip"])
-        clean, aug = _emit_pair(geo, d)
-        cleans.append(clean)
-        augs.append(aug)
-    return (torch.stack(cleans[:2]), torch.stack(augs[:2]),
-            torch.stack(cleans[2:]), torch.stack(augs[2:]))
+    geo = random_resized_crop_apply(x, out_size, **draws["crop"])
+    geo = random_flip_apply(torch.clamp(geo, 0.0, 1.0), draws["flip"])
+    # flip_and_color_jitter minus the flip (``lafs_train.py:792-798``)
+    aug = torch.where(draws["jitter"],
+                      color_jitter_apply(geo, **draws["color"]), geo)
+    aug = gaussian_blur_apply(random_grayscale_apply(aug, draws["gray"]),
+                              **draws["blur"])
+    aug = solarize_apply(aug, draws["solarize"])
+    clean = (geo * 2.0 - 1.0).view(n, b, *geo.shape[1:])
+    aug = (aug * 2.0 - 1.0).contiguous().view(n, b, *geo.shape[1:])
+    return clean[:2], aug[:2], clean[2:], aug[2:]
 
 
 def lafs_multicrop_device(images_uint8, gen, local_crops_number: int = 8,

@@ -8,6 +8,11 @@ port, and compare with the JAX op run on the same key. Images are fp32 in
 [0, 1] made from a seed with numpy (non-square, 40 × 48, to catch a
 swapped axis). Tolerance: 1e-5 absolute in [0, 1] (2e-5 on the [-1, 1]
 crops), summation order of the interpolation and blur products only.
+
+The port's own multi-crop runs every op once over the rows of all its
+crop pairs; it is also held to the same ops applied pair by pair, to the
+benchmark's plain reference on one seeded generator (the draw stream),
+and to a count of the ops it dispatches.
 """
 
 import jax
@@ -15,9 +20,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
+from bench_torch.reference import ssl as bench_ref
 from lafs_cvpr2024_tpu.ops import augment_device as jad
 from lafs_cvpr2024_tpu_torch.ops import augment_device as tad
+from lafs_cvpr2024_tpu_torch.utils import tracing
 
 B, H, W = 3, 40, 48
 
@@ -86,6 +94,32 @@ def _pair_draws(key, b, h, w, i, scale=(0.4, 1.0)):
     if solarize_p > 0:
         d["solarize"] = _mask(k3, solarize_p, b)
     return d
+
+
+def _stack_pairs(pairs, b):
+    """Per-pair draws → the pair-major rows ``lafs_multicrop_apply`` takes
+    (solarize False for the pairs that draw none)."""
+    def cat(vals):
+        if isinstance(vals[0], dict):
+            return {k: cat([v[k] for v in vals]) for k in vals[0]}
+        return torch.cat(vals)
+    out = cat([{k: v for k, v in d.items() if k != "solarize"}
+               for d in pairs])
+    out["solarize"] = torch.cat([d.get("solarize", torch.zeros(
+        (b, 1, 1, 1), dtype=torch.bool)) for d in pairs])
+    return out
+
+
+def _rows(draws, i, b):
+    """Pair ``i``'s rows of the stacked draws."""
+    if isinstance(draws, dict):
+        return {k: _rows(v, i, b) for k, v in draws.items()}
+    return draws[i * b:(i + 1) * b]
+
+
+def _uint8_images(seed, b=B, h=H, w=W):
+    return torch.from_numpy((np.random.default_rng(seed).uniform(
+        0, 1, (b, h, w, 3)) * 255).astype(np.uint8))
 
 
 def _err(got, want):
@@ -177,7 +211,8 @@ def test_lafs_multicrop_matches_jax():
     want = jad.lafs_multicrop_device(key, jnp.asarray(imgs),
                                      local_crops_number=2, out_size=32)
     keys = jax.random.split(key, 4)
-    draws = [_pair_draws(keys[i], B, H, W, i) for i in range(4)]
+    draws = _stack_pairs([_pair_draws(keys[i], B, H, W, i)
+                          for i in range(4)], B)
     got = tad.lafs_multicrop_apply(_t(imgs), draws, out_size=32)
     shapes = ((2, B, 32, 32, 3), (2, B, 32, 32, 3), (2, B, 32, 32, 3),
               (2, B, 32, 32, 3))
@@ -205,3 +240,89 @@ def test_lafs_multicrop_device_layout_and_ranges():
         assert torch.equal(a, b)
     other = tad.lafs_multicrop_device(imgs, torch.Generator().manual_seed(4))
     assert not torch.equal(other[0], gc)
+
+
+def _per_pair(images_uint8, draws, n_pairs, out_size):
+    """The multi-crop composed pair by pair from the module's ops: crop,
+    clamp, flip, jitter where drawn, grayscale, blur, solarize (global 2),
+    ×2−1."""
+    b = images_uint8.shape[0]
+    x = images_uint8.float() / 255.0
+    clean, aug = [], []
+    for i in range(n_pairs):
+        d = _rows(draws, i, b)
+        geo = tad.random_resized_crop_apply(x, out_size, **d["crop"])
+        geo = tad.random_flip_apply(torch.clamp(geo, 0.0, 1.0), d["flip"])
+        y = torch.where(d["jitter"], tad.color_jitter_apply(geo, **d["color"]),
+                        geo)
+        y = tad.gaussian_blur_apply(tad.random_grayscale_apply(y, d["gray"]),
+                                    **d["blur"])
+        if i == 1:
+            y = tad.solarize_apply(y, d["solarize"])
+        else:
+            assert not d["solarize"].any()
+        clean.append(geo * 2.0 - 1.0)
+        aug.append(y * 2.0 - 1.0)
+    return (torch.stack(clean[:2]), torch.stack(aug[:2]),
+            torch.stack(clean[2:]), torch.stack(aug[2:]))
+
+
+@pytest.mark.parametrize("local_crops", [2, 8])
+def test_lafs_multicrop_equals_the_per_pair_composition(local_crops):
+    """One chain over the rows of all 2 + L pairs computes each pair's
+    crops as the ops applied to that pair alone."""
+    imgs = _uint8_images(8)
+    draws = tad.draw_lafs_multicrop(torch.Generator().manual_seed(9), B, H,
+                                    W, local_crops)
+    got = tad.lafs_multicrop_apply(imgs, draws, out_size=32)
+    want = _per_pair(imgs, draws, 2 + local_crops, 32)
+    for g, w_ in zip(got, want):
+        assert g.shape == w_.shape and g.is_contiguous()
+        assert (g - w_).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("seed", [3, 2**31 + 17])
+def test_lafs_multicrop_draws_the_benchmark_reference_stream(seed):
+    """The generator calls in the order and shapes the benchmark's plain
+    reference makes them: the same crops from the same seed (a reordered
+    or merged draw flips masks and misses by orders of magnitude)."""
+    imgs = _uint8_images(10)
+    got = tad.lafs_multicrop_device(imgs, torch.Generator().manual_seed(seed),
+                                    8, out_size=32)
+    want = bench_ref.multicrop(imgs, torch.Generator().manual_seed(seed), 8,
+                               32, (0.4, 1.0))
+    for g, w_ in zip(got, want):
+        assert g.shape == w_.shape
+        assert (g - w_).abs().max().item() <= 1e-5
+
+
+class _OpCount(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_lafs_multicrop_ops_barely_grow_with_the_pairs():
+    """The host issues the apply's ops once for all pairs: at L = 8 at most
+    1.5× the ops of L = 2 (a loop over the pairs gives ~2.5×), and the
+    tracer counts 2 + L pairs a call."""
+    imgs = _uint8_images(11, 2, 16, 16)
+    counts = {}
+    tracing.reset()
+    tracing.enable(True)
+    try:
+        for n_loc in (2, 8):
+            with _OpCount() as c:
+                tad.lafs_multicrop_device(imgs, torch.Generator().manual_seed(1),
+                                          n_loc, out_size=16)
+            counts[n_loc] = c.n
+            assert tracing.export()["counters"]["multicrop.pairs"] == 2 + n_loc
+            tracing.reset()
+    finally:
+        tracing.enable(False)
+        tracing.reset()
+    assert counts[8] <= 1.5 * counts[2], counts

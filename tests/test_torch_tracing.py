@@ -153,6 +153,8 @@ def test_ssl_step_parts_nest_under_the_step(ssl_setup):
         assert part["end_ns"] <= step["end_ns"]
     order = sorted(PARTS, key=lambda n: by_name(rec, n)[0]["start_ns"])
     assert order == list(PARTS)
+    # the multi-crop's 2 + 2 crop pairs went through one batched chain
+    assert rec["counters"]["multicrop.pairs"] == 4
 
 
 def test_prefetcher_spans_sit_on_their_threads():
