@@ -21,8 +21,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
 from typing import Sequence
 
 import numpy as np
@@ -34,22 +32,14 @@ from .. import _build
 DECODER = "nvjpeg"
 SOURCE = _build.CSRC / "jpeg_decode.cpp"
 BUILD_DIR = _build.BUILD_DIR.parent / "jpeg"
-FLAGS = ("-x", "cu", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-         "-O3", "-Xcompiler", "-fPIC", "-shared")
+FLAGS = ("-x", "cu", *_build.NVCC_FLAGS)  # a .cpp source with a kernel
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The built nvJPEG decoder (built on the first call of a process)."""
-    digest = hashlib.sha256(" ".join(FLAGS).encode() + SOURCE.read_bytes())
-    out = BUILD_DIR / f"liblafs_jpeg-{digest.hexdigest()[:16]}.so"
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
-        _build._wait(_build._start([_build._nvcc(), *FLAGS, "-o", str(tmp),
-                                    str(SOURCE), "-lnvjpeg"]))
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    lib = ctypes.CDLL(str(_build.shared_library(
+        BUILD_DIR, "liblafs_jpeg", [SOURCE], FLAGS, libs=("-lnvjpeg",))))
     lib.lafs_jpeg_info.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
                                    ctypes.POINTER(ctypes.c_int),
                                    ctypes.POINTER(ctypes.c_int)]

@@ -43,7 +43,6 @@ import torch.nn.functional as F
 from .. import _build
 from .fused_attention import HEAD_DIM, _heads_view, _operand, _strides
 
-_DTYPES = (torch.float32, torch.bfloat16)
 LOG2E = 1.4426950408889634  # the kernels' exponentials are base 2
 STATS_ROWS = 64             # query rows of one tile of the scratch
 
@@ -142,13 +141,7 @@ def stats_tiles(n: int) -> int:
 
 
 def _check(what: str, q: torch.Tensor, ops) -> None:
-    if not q.is_cuda or any(t.device != q.device for t in ops):
-        raise ValueError(f"{what}: every operand must be on q's CUDA device "
-                         f"({q.device})")
-    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in ops):
-        raise TypeError(f"{what} takes float32 or bfloat16 with every "
-                        f"operand in q's dtype, got q {q.dtype} and "
-                        f"{[str(t.dtype) for t in ops]}")
+    _build.check_operands(what, q, *ops)
     if q.ndim != 4 or any(t.shape != q.shape for t in ops):
         raise ValueError(f"{what}: q {tuple(q.shape)} and the other operands "
                          f"{[tuple(t.shape) for t in ops]} must all be one "
@@ -169,10 +162,6 @@ def _check_f32(what: str, t: torch.Tensor, shape, q: torch.Tensor) -> None:
                          f"{t.device}")
 
 
-def _fn(lib, name: str, dtype):
-    return getattr(lib, f"{name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}")
-
-
 def flash_attention_fwd_cuda(q, k, v, scale: float):
     """Launch kernel 11a on (B, H, N, D) CUDA operands in one dtype (D = 64,
     any N ≥ 1). Returns ``(o, lse)``: O as a (B, H, N, D) view of a
@@ -183,13 +172,9 @@ def flash_attention_fwd_cuda(q, k, v, scale: float):
     o = _heads_view(q)
     lse = torch.empty((b, h, n), device=q.device, dtype=torch.float32)
     strides = _strides(q, k, v, o)
-    fn = _fn(_build.library(), "lafs_flash_attention", q.dtype)
-    with _build.device_guard(q):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), ctypes.addressof(strides), b, h, n, d,
-                 float(scale), _build.stream_ptr(q))
-    _build.check(err, "flash_attention kernel")
-    _build.LAUNCHES["flash_attention"] += 1
+    _build.launch("flash_attention", q, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                  ctypes.addressof(strides), b, h, n, d, float(scale))
     return o, lse
 
 
@@ -200,14 +185,10 @@ def _launch_dq(q, k, v, o, do, lse, scale: float):
     stats = torch.empty((b * h, stats_tiles(n), 2, STATS_ROWS),
                         device=q.device, dtype=torch.float32)
     strides = _strides(q, k, v, o, do, dq, lse)
-    fn = _fn(_build.library(), "lafs_flash_attention_bwd_dq", q.dtype)
-    with _build.device_guard(q):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-                 stats.data_ptr(), ctypes.addressof(strides), b, h, n, d,
-                 float(scale), _build.stream_ptr(q))
-    _build.check(err, "flash_attention_bwd_dq kernel")
-    _build.LAUNCHES["flash_attention_bwd_dq"] += 1
+    _build.launch("flash_attention_bwd_dq", q, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                  dq.data_ptr(), stats.data_ptr(), ctypes.addressof(strides),
+                  b, h, n, d, float(scale))
     return dq, stats
 
 
@@ -216,14 +197,10 @@ def _launch_dkv(q, k, v, do, stats, scale: float):
     b, h, n, d = q.shape
     dk, dv = _heads_view(q), _heads_view(q)
     strides = _strides(q, k, v, do, dk, dv)
-    fn = _fn(_build.library(), "lafs_flash_attention_bwd_dkv", q.dtype)
-    with _build.device_guard(q):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 stats.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 ctypes.addressof(strides), b, h, n, d, float(scale),
-                 _build.stream_ptr(q))
-    _build.check(err, "flash_attention_bwd_dkv kernel")
-    _build.LAUNCHES["flash_attention_bwd_dkv"] += 1
+    _build.launch("flash_attention_bwd_dkv", q, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), do.data_ptr(), stats.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), ctypes.addressof(strides), b,
+                  h, n, d, float(scale))
     return dk, dv
 
 

@@ -34,7 +34,6 @@ import torch
 
 from .. import _build
 
-_DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIM = 64     # the head width the kernels take
 MAX_SEQ = 512     # the longest sequence they take (the JAX kernel's window)
 
@@ -98,13 +97,7 @@ def _strides(*ts) -> ctypes.Array:
 
 
 def _check(what: str, q: torch.Tensor, ops) -> None:
-    if not q.is_cuda or any(t.device != q.device for t in ops):
-        raise ValueError(f"{what}: every operand must be on q's CUDA device "
-                         f"({q.device})")
-    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in ops):
-        raise TypeError(f"{what} takes float32 or bfloat16 with every "
-                        f"operand in q's dtype, got q {q.dtype} and "
-                        f"{[str(t.dtype) for t in ops]}")
+    _build.check_operands(what, q, *ops)
     if q.ndim != 4 or any(t.shape != q.shape for t in ops):
         raise ValueError(f"{what}: q {tuple(q.shape)} and the other operands "
                          f"{[tuple(t.shape) for t in ops]} must all be one "
@@ -123,15 +116,9 @@ def fused_attention_cuda(q, k, v, scale: float) -> torch.Tensor:
     b, h, s, d = q.shape
     o = _heads_view(q)
     strides = _strides(q, k, v, o)
-    lib = _build.library()
-    fn = (lib.lafs_fused_attention_bf16 if q.dtype == torch.bfloat16
-          else lib.lafs_fused_attention_f32)
-    with _build.device_guard(q):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 ctypes.addressof(strides), b, h, s, d, float(scale),
-                 _build.stream_ptr(q))
-    _build.check(err, "fused_attention kernel")
-    _build.LAUNCHES["fused_attention"] += 1
+    _build.launch("fused_attention", q, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), o.data_ptr(), ctypes.addressof(strides), b, h,
+                  s, d, float(scale))
     return o
 
 
@@ -148,16 +135,10 @@ def fused_attention_bwd_cuda(q, k, v, do, scale: float):
     stats = torch.empty(b * h * 3 * 64 * -(-s // 64), device=q.device,
                         dtype=torch.float32)
     strides = _strides(q, k, v, do, dq, dk, dv)
-    lib = _build.library()
-    fn = (lib.lafs_fused_attention_bwd_bf16 if q.dtype == torch.bfloat16
-          else lib.lafs_fused_attention_bwd_f32)
-    with _build.device_guard(q):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-                 ctypes.addressof(strides), b, h, s, d, float(scale),
-                 _build.stream_ptr(q))
-    _build.check(err, "fused_attention_bwd kernel")
-    _build.LAUNCHES["fused_attention_bwd"] += 1
+    _build.launch("fused_attention_bwd", q, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), stats.data_ptr(), ctypes.addressof(strides),
+                  b, h, s, d, float(scale))
     return dq, dk, dv
 
 

@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .fused_mlp import _DTYPES, _aligned, _ln_bwd, _ln_rows
+from .fused_mlp import _ln_bwd, _ln_rows
 
 
 def fused_ln_linear_fwd_plain(x, g, bt, w, *, eps: float = 1e-5):
@@ -60,17 +60,12 @@ def fused_ln_linear_bwd_plain(x, dy, g, bt, w, *, eps: float = 1e-5):
 
 def _checked(what, x, g, bt, w, dy=None):
     """x (T, D), g and bt (D,), w (O, D) and dy (T, O) on x's CUDA device
-    in x's dtype, D a multiple of 128 up to 768: (x, g, bt, w, dy) as
-    :func:`_operands` hands them on."""
+    in x's dtype, D a multiple of 128 up to 768: (x, g, bt, w, dy) each
+    contiguous at a 16-byte-aligned address, as both designs of kernels 8
+    and 9 read them (TMA tiles, 16-byte loads)."""
     ops = (g, bt, w) + (() if dy is None else (dy,))
     d = x.shape[-1]
-    if not x.is_cuda or any(t.device != x.device for t in ops):
-        raise ValueError(f"{what}: every operand must be on x's CUDA device "
-                         f"({x.device})")
-    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in ops):
-        raise TypeError(
-            f"{what} takes float32 or bfloat16 with every operand in x's "
-            f"dtype, got x {x.dtype} and {[str(t.dtype) for t in ops]}")
+    _build.check_operands(what, x, *ops)
     if d % 128 or d > 768:
         raise ValueError(f"{what} takes D % 128 == 0 and D <= 768, got D={d}")
     if x.ndim != 2 or w.ndim != 2 or w.shape[1] != d or w.shape[0] < 1 \
@@ -80,15 +75,8 @@ def _checked(what, x, g, bt, w, dy=None):
             f"{what}: shapes x {tuple(x.shape)}, w {tuple(w.shape)}, "
             f"{[tuple(t.shape) for t in ops]} do not form LN(x) @ wᵀ on "
             "(T, D) rows")
-    x, g, bt, w = _operands(x, g, bt, w)
-    return x, g, bt, w, (None if dy is None else _operands(dy)[0])
-
-
-def _operands(*tensors):
-    """Each tensor contiguous at a 16-byte-aligned address, as both designs
-    of kernels 8 and 9 read it (TMA tiles, 16-byte loads): itself, or a
-    copy."""
-    return tuple(_aligned(t.contiguous()) for t in tensors)
+    x, g, bt, w = map(_build.aligned, (x, g, bt, w))
+    return x, g, bt, w, (None if dy is None else _build.aligned(dy))
 
 
 def fused_ln_linear_fwd_cuda(x, g, bt, w, *, eps: float = 1e-5):
@@ -98,14 +86,9 @@ def fused_ln_linear_fwd_cuda(x, g, bt, w, *, eps: float = 1e-5):
     t, d = x.shape
     o = w.shape[0]
     y = x.new_empty((t, o))
-    lib = _build.library()
-    fn = (lib.lafs_fused_ln_linear_bf16 if x.dtype == torch.bfloat16
-          else lib.lafs_fused_ln_linear_f32)
-    with _build.device_guard(x):
-        err = fn(x.data_ptr(), g.data_ptr(), bt.data_ptr(), w.data_ptr(),
-                 y.data_ptr(), t, d, o, float(eps), _build.stream_ptr(x))
-    _build.check(err, "fused_ln_linear kernel")
-    _build.LAUNCHES["fused_ln_linear"] += 1
+    _build.launch("fused_ln_linear", x, x.data_ptr(), g.data_ptr(),
+                  bt.data_ptr(), w.data_ptr(), y.data_ptr(), t, d, o,
+                  float(eps))
     return y
 
 
@@ -116,22 +99,16 @@ def fused_ln_linear_bwd_cuda(x, dy, g, bt, w, *, eps: float = 1e-5):
     atomics; the library says how many)."""
     x, g, bt, w, dy = _checked("fused_ln_linear_bwd_cuda", x, g, bt, w, dy)
     t, d = x.shape
-    lib = _build.library()
-    blocks = lib.lafs_ln_linear_bwd_partial_rows(
+    blocks = _build.library().lafs_ln_linear_bwd_partial_rows(
         t, d, w.shape[0], int(x.dtype == torch.bfloat16))
     xn, dx = torch.empty_like(x), torch.empty_like(x)
     dgp = torch.empty((max(blocks, 1), d), device=x.device,
                       dtype=torch.float32)
     dbp = torch.empty_like(dgp)
-    fn = (lib.lafs_fused_ln_linear_bwd_bf16 if x.dtype == torch.bfloat16
-          else lib.lafs_fused_ln_linear_bwd_f32)
-    with _build.device_guard(x):
-        err = fn(x.data_ptr(), dy.data_ptr(), g.data_ptr(), bt.data_ptr(),
-                 w.data_ptr(), xn.data_ptr(), dx.data_ptr(), dgp.data_ptr(),
-                 dbp.data_ptr(), t, d, w.shape[0], float(eps),
-                 _build.stream_ptr(x))
-    _build.check(err, "fused_ln_linear_bwd kernel")
-    _build.LAUNCHES["fused_ln_linear_bwd"] += 1
+    _build.launch("fused_ln_linear_bwd", x, x.data_ptr(), dy.data_ptr(),
+                  g.data_ptr(), bt.data_ptr(), w.data_ptr(), xn.data_ptr(),
+                  dx.data_ptr(), dgp.data_ptr(), dbp.data_ptr(), t, d,
+                  w.shape[0], float(eps))
     return xn, dx, dgp[:blocks].sum(0), dbp[:blocks].sum(0)
 
 

@@ -46,7 +46,6 @@ import torch.nn.functional as F
 
 from .. import _build
 
-_DTYPES = (torch.float32, torch.bfloat16)
 _M32 = 0xFFFFFFFF
 
 
@@ -153,25 +152,23 @@ def fused_ln_mlp_fwd_plain(x, g, bt, w1, b1, w2, b2, *, eps: float = 1e-5,
                                save_u=save_u)
 
 
-def _check(what, x, ops, d, hdim, max_d):
-    if not x.is_cuda or any(t.device != x.device for t in ops):
-        raise ValueError(f"{what}: every operand must be on x's CUDA device "
-                         f"({x.device})")
-    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in ops):
-        raise TypeError(
-            f"{what} takes float32 or bfloat16 with every operand in x's "
-            f"dtype, got x {x.dtype} and {[str(t.dtype) for t in ops]}")
-    if d % 128 or d > max_d or hdim % 128:
+def _check(what, x, ops, d, hdim):
+    _build.check_operands(what, x, *ops)
+    if d % 128 or d > 768 or hdim % 128:
         raise ValueError(
-            f"{what} takes D % 128 == 0, D <= {max_d} and H % 128 == 0; "
+            f"{what} takes D % 128 == 0, D <= 768 and H % 128 == 0; "
             f"got D={d}, H={hdim}")
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous ``t`` at a 16-byte-aligned address, as the Hopper design
-    of kernels 2-5 reads it (TMA tiles, 16-byte loads): ``t`` itself, or a
-    copy."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+def _weights(what, *ws):
+    """The weights contiguous, as both designs of kernels 2-5 read them:
+    at 32-byte-aligned addresses (tensor-core fragment loads), or it
+    raises."""
+    ws = tuple(w.contiguous() for w in ws)
+    if any(w.data_ptr() % 32 for w in ws):
+        raise ValueError(f"{what}: the weights must be 32-byte aligned "
+                         "(tensor-core fragment loads)")
+    return ws
 
 
 def _drop_args(rate: float, seed: int):
@@ -192,7 +189,7 @@ def fused_ln_mlp_fwd_cuda(x, g, bt, w1, b1, w2, b2, *, eps: float = 1e-5,
     as :func:`fused_ln_mlp_fwd_plain`."""
     d, hdim = x.shape[-1], w1.shape[0]
     ops = (g, bt, w1, b1, w2, b2)
-    _check("fused_ln_mlp_fwd_cuda", x, ops, d, hdim, 768)
+    _check("fused_ln_mlp_fwd_cuda", x, ops, d, hdim)
     if tuple(w1.shape) != (hdim, d) or tuple(w2.shape) != (d, hdim) \
             or g.shape != (d,) or bt.shape != (d,) or b1.shape != (hdim,) \
             or b2.shape != (d,) or x.ndim != 2:
@@ -200,26 +197,16 @@ def fused_ln_mlp_fwd_cuda(x, g, bt, w1, b1, w2, b2, *, eps: float = 1e-5,
             f"fused_ln_mlp_fwd_cuda: shapes x {tuple(x.shape)}, w1 "
             f"{tuple(w1.shape)}, w2 {tuple(w2.shape)} do not form an MLP "
             f"of width {d} -> {hdim} on (T, D) rows")
-    x = x.contiguous()
-    g, bt, w1, b1, w2, b2 = (v.contiguous() for v in ops)
-    if w1.data_ptr() % 32 or w2.data_ptr() % 32:
-        raise ValueError("fused_ln_mlp_fwd_cuda: the weights must be 32-byte "
-                         "aligned (tensor-core fragment loads)")
-    x, g, bt, b1, b2 = (_aligned(v) for v in (x, g, bt, b1, b2))
+    w1, w2 = _weights("fused_ln_mlp_fwd_cuda", w1, w2)
+    x, g, bt, b1, b2 = map(_build.aligned, (x, g, bt, b1, b2))
     t = x.shape[0]
     y = torch.empty_like(x)
     u = x.new_empty((t, hdim)) if save_u else None
-    s, thresh, ik, drop = _drop_args(rate, seed)
-    lib = _build.library()
-    fn = (lib.lafs_fused_ln_mlp_bf16 if x.dtype == torch.bfloat16
-          else lib.lafs_fused_ln_mlp_f32)
-    with _build.device_guard(x):
-        err = fn(x.data_ptr(), g.data_ptr(), bt.data_ptr(), w1.data_ptr(),
-                 b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), y.data_ptr(),
-                 u.data_ptr() if save_u else None, t, d, hdim, float(eps),
-                 s, thresh, ik, drop, _build.stream_ptr(x))
-    _build.check(err, "fused_ln_mlp kernel")
-    _build.LAUNCHES["fused_ln_mlp"] += 1
+    _build.launch("fused_ln_mlp", x, x.data_ptr(), g.data_ptr(),
+                  bt.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                  b2.data_ptr(), y.data_ptr(),
+                  u.data_ptr() if save_u else None, t, d, hdim, float(eps),
+                  *_drop_args(rate, seed))
     return y, u
 
 
@@ -285,7 +272,7 @@ def fused_ln_mlp_bwd_cuda(x, u, dy, g, bt, w1, w2, *, eps: float = 1e-5,
     library says how many)."""
     d, hdim = x.shape[-1], w1.shape[0]
     ops = (u, dy, g, bt, w1, w2)
-    _check("fused_ln_mlp_bwd_cuda", x, ops, d, hdim, 768)
+    _check("fused_ln_mlp_bwd_cuda", x, ops, d, hdim)
     t = x.shape[0]
     if x.ndim != 2 or tuple(dy.shape) != (t, d) or tuple(u.shape) != (t, hdim) \
             or tuple(w1.shape) != (hdim, d) or tuple(w2.shape) != (d, hdim) \
@@ -294,29 +281,20 @@ def fused_ln_mlp_bwd_cuda(x, u, dy, g, bt, w1, w2, *, eps: float = 1e-5,
             f"fused_ln_mlp_bwd_cuda: shapes x {tuple(x.shape)}, u "
             f"{tuple(u.shape)}, dy {tuple(dy.shape)}, w1 {tuple(w1.shape)}, "
             f"w2 {tuple(w2.shape)} do not form an MLP of width {d} -> {hdim}")
-    x, u, dy, g, bt, w1, w2 = (v.contiguous() for v in (x, u, dy, *ops[2:]))
-    if w1.data_ptr() % 32 or w2.data_ptr() % 32:
-        raise ValueError("fused_ln_mlp_bwd_cuda: the weights must be 32-byte "
-                         "aligned (tensor-core fragment loads)")
-    x, u, dy, g, bt = (_aligned(v) for v in (x, u, dy, g, bt))
-    lib = _build.library()
-    blocks = lib.lafs_ln_mlp_bwd_partial_rows(t, d, hdim,
-                                              int(x.dtype == torch.bfloat16))
+    w1, w2 = _weights("fused_ln_mlp_bwd_cuda", w1, w2)
+    x, u, dy, g, bt = map(_build.aligned, (x, u, dy, g, bt))
+    blocks = _build.library().lafs_ln_mlp_bwd_partial_rows(
+        t, d, hdim, int(x.dtype == torch.bfloat16))
     do, xn, dx = (torch.empty_like(x) for _ in range(3))
     hd, du = torch.empty_like(u), torch.empty_like(u)
     dgp = torch.empty((max(blocks, 1), d), device=x.device, dtype=torch.float32)
     dbp = torch.empty_like(dgp)
-    s, thresh, ik, drop = _drop_args(rate, seed)
-    fn = (lib.lafs_fused_ln_mlp_bwd_bf16 if x.dtype == torch.bfloat16
-          else lib.lafs_fused_ln_mlp_bwd_f32)
-    with _build.device_guard(x):
-        err = fn(x.data_ptr(), u.data_ptr(), dy.data_ptr(), g.data_ptr(),
-                 bt.data_ptr(), w1.data_ptr(), w2.data_ptr(), do.data_ptr(),
-                 hd.data_ptr(), du.data_ptr(), xn.data_ptr(), dx.data_ptr(),
-                 dgp.data_ptr(), dbp.data_ptr(), t, d, hdim, float(eps),
-                 s, thresh, ik, drop, _build.stream_ptr(x))
-    _build.check(err, "fused_ln_mlp_bwd kernel")
-    _build.LAUNCHES["fused_ln_mlp_bwd"] += 1
+    _build.launch("fused_ln_mlp_bwd", x, x.data_ptr(), u.data_ptr(),
+                  dy.data_ptr(), g.data_ptr(), bt.data_ptr(), w1.data_ptr(),
+                  w2.data_ptr(), do.data_ptr(), hd.data_ptr(), du.data_ptr(),
+                  xn.data_ptr(), dx.data_ptr(), dgp.data_ptr(),
+                  dbp.data_ptr(), t, d, hdim, float(eps),
+                  *_drop_args(rate, seed))
     return do, hd, du, xn, dx, dgp[:blocks].sum(0), dbp[:blocks].sum(0)
 
 
@@ -383,31 +361,22 @@ def fused_mlp_fwd_cuda(x, w1, b1, w2, b2, *, rate: float = 0.0,
     as :func:`fused_mlp_fwd_plain`."""
     d, hdim = x.shape[-1], w1.shape[0]
     ops = (w1, b1, w2, b2)
-    _check("fused_mlp_fwd_cuda", x, ops, d, hdim, 768)
+    _check("fused_mlp_fwd_cuda", x, ops, d, hdim)
     if tuple(w1.shape) != (hdim, d) or tuple(w2.shape) != (d, hdim) \
             or b1.shape != (hdim,) or b2.shape != (d,) or x.ndim != 2:
         raise ValueError(
             f"fused_mlp_fwd_cuda: shapes x {tuple(x.shape)}, w1 "
             f"{tuple(w1.shape)}, w2 {tuple(w2.shape)} do not form an MLP "
             f"of width {d} -> {hdim} on (T, D) rows")
-    x = x.contiguous()
-    w1, b1, w2, b2 = (v.contiguous() for v in ops)
-    if w1.data_ptr() % 32 or w2.data_ptr() % 32:
-        raise ValueError("fused_mlp_fwd_cuda: the weights must be 32-byte "
-                         "aligned (tensor-core fragment loads)")
-    x, b1, b2 = (_aligned(v) for v in (x, b1, b2))
+    w1, w2 = _weights("fused_mlp_fwd_cuda", w1, w2)
+    x, b1, b2 = map(_build.aligned, (x, b1, b2))
     t = x.shape[0]
     y = torch.empty_like(x)
     u = x.new_empty((t, hdim)) if save_u else None
-    lib = _build.library()
-    fn = (lib.lafs_fused_mlp_bf16 if x.dtype == torch.bfloat16
-          else lib.lafs_fused_mlp_f32)
-    with _build.device_guard(x):
-        err = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                 b2.data_ptr(), y.data_ptr(), u.data_ptr() if save_u else None,
-                 t, d, hdim, *_drop_args(rate, seed), _build.stream_ptr(x))
-    _build.check(err, "fused_mlp kernel")
-    _build.LAUNCHES["fused_mlp"] += 1
+    _build.launch("fused_mlp", x, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                  w2.data_ptr(), b2.data_ptr(), y.data_ptr(),
+                  u.data_ptr() if save_u else None, t, d, hdim,
+                  *_drop_args(rate, seed))
     return y, u
 
 
@@ -424,29 +393,20 @@ def fused_mlp_bwd_cuda(u, dy, w2, *, rate: float = 0.0, seed: int = 0):
     :func:`fused_mlp_bwd_plain` returns."""
     t, d = dy.shape[0], dy.shape[-1]
     hdim = u.shape[-1]
-    _check("fused_mlp_bwd_cuda", dy, (u, w2), d, hdim, 768)
+    _check("fused_mlp_bwd_cuda", dy, (u, w2), d, hdim)
     if dy.ndim != 2 or tuple(u.shape) != (t, hdim) \
             or tuple(w2.shape) != (d, hdim):
         raise ValueError(
             f"fused_mlp_bwd_cuda: shapes u {tuple(u.shape)}, dy "
             f"{tuple(dy.shape)}, w2 {tuple(w2.shape)} do not form an MLP of "
             f"width {d} -> {hdim}")
-    u, dy, w2 = u.contiguous(), dy.contiguous(), w2.contiguous()
-    if w2.data_ptr() % 32:
-        raise ValueError("fused_mlp_bwd_cuda: w2 must be 32-byte aligned "
-                         "(tensor-core fragment loads)")
-    u, dy = _aligned(u), _aligned(dy)
+    (w2,) = _weights("fused_mlp_bwd_cuda", w2)
+    u, dy = _build.aligned(u), _build.aligned(dy)
     do = torch.empty_like(dy)
     hd, du = torch.empty_like(u), torch.empty_like(u)
-    lib = _build.library()
-    fn = (lib.lafs_fused_mlp_bwd_bf16 if dy.dtype == torch.bfloat16
-          else lib.lafs_fused_mlp_bwd_f32)
-    with _build.device_guard(dy):
-        err = fn(u.data_ptr(), dy.data_ptr(), w2.data_ptr(), do.data_ptr(),
-                 hd.data_ptr(), du.data_ptr(), t, d, hdim,
-                 *_drop_args(rate, seed), _build.stream_ptr(dy))
-    _build.check(err, "fused_mlp_bwd kernel")
-    _build.LAUNCHES["fused_mlp_bwd"] += 1
+    _build.launch("fused_mlp_bwd", dy, u.data_ptr(), dy.data_ptr(),
+                  w2.data_ptr(), do.data_ptr(), hd.data_ptr(), du.data_ptr(),
+                  t, d, hdim, *_drop_args(rate, seed))
     return do, hd, du
 
 

@@ -79,10 +79,8 @@ def mlp_fusion_cuda(x, w1, w2, *, rate: float = 0.0, seed: int = 0):
     """Launch the row-10 kernel on bf16 x (T, D) on its CUDA device, with
     w1 (D, H) and w2 (H, D) there in bf16 (D = 768, H a multiple of 256:
     the TPU kernel takes only D = 768, H = 2048)."""
-    if not x.is_cuda or w1.device != x.device or w2.device != x.device:
-        raise ValueError("mlp_fusion_cuda: x, w1 and w2 must be on one CUDA "
-                         f"device (x on {x.device})")
-    if any(t.dtype != torch.bfloat16 for t in (x, w1, w2)):
+    _build.check_operands("mlp_fusion_cuda", x, w1, w2)
+    if x.dtype != torch.bfloat16:
         raise TypeError("mlp_fusion_cuda takes bfloat16 x, w1 and w2, got "
                         f"{x.dtype}, {w1.dtype}, {w2.dtype}")
     d, hdim = x.shape[-1], w1.shape[-1]
@@ -100,13 +98,8 @@ def mlp_fusion_cuda(x, w1, w2, *, rate: float = 0.0, seed: int = 0):
         raise ValueError("mlp_fusion_cuda: x, w1 and w2 must be 16-byte "
                          "aligned (TMA loads)")
     y = torch.empty_like(x)
-    with _build.device_guard(x):
-        err = _build.library().lafs_mlp_fusion_bf16(
-            x.data_ptr(), w1.data_ptr(), w2.data_ptr(), y.data_ptr(),
-            x.shape[0], d, hdim, *_drop_args(rate, seed),
-            _build.stream_ptr(x))
-    _build.check(err, "mlp_fusion kernel")
-    _build.LAUNCHES["mlp_fusion"] += 1
+    _build.launch("mlp_fusion", x, x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                  y.data_ptr(), x.shape[0], d, hdim, *_drop_args(rate, seed))
     return y
 
 

@@ -12,23 +12,14 @@ import torch
 
 from .. import _build
 
-_DTYPES = (torch.float32, torch.bfloat16)
-
 
 def patch_gather_cuda(images: torch.Tensor, landmarks: torch.Tensor,
                       patch_size: int = 8) -> torch.Tensor:
     """(B, H, W, C) CUDA images + (B, N, 2) landmarks → (B, N, P*P*C)
     tokens in the image dtype, computed in fp32 by the kernel."""
-    if not (images.is_cuda and landmarks.device == images.device):
-        raise ValueError(
-            "patch_gather_cuda: images and landmarks must be on one CUDA "
-            f"device, got {images.device} and {landmarks.device}"
-        )
-    if images.dtype not in _DTYPES or landmarks.dtype not in _DTYPES:
-        raise TypeError(
-            "patch_gather_cuda takes float32/bfloat16 images and landmarks, "
-            f"got {images.dtype} and {landmarks.dtype}"
-        )
+    # the image and landmark dtypes are the kernel's arguments, apart
+    _build.check_operands("patch_gather_cuda", images, landmarks,
+                          one_dtype=False)
     if images.ndim != 4 or landmarks.ndim != 3 or landmarks.shape[-1] != 2 \
             or landmarks.shape[0] != images.shape[0]:
         raise ValueError(
@@ -43,15 +34,8 @@ def patch_gather_cuda(images: torch.Tensor, landmarks: torch.Tensor,
     n = landmarks.shape[1]
     out = torch.empty((b, n, patch_size * patch_size * c),
                       dtype=images.dtype, device=images.device)
-    lib = _build.library()
-    with _build.device_guard(images):
-        err = lib.lafs_patch_gather(
-            images.data_ptr(), landmarks.data_ptr(), out.data_ptr(),
-            b, h, w, c, n, patch_size,
-            int(images.dtype == torch.bfloat16),
-            int(landmarks.dtype == torch.bfloat16),
-            _build.stream_ptr(images),
-        )
-    _build.check(err, "patch_gather kernel")
-    _build.LAUNCHES["patch_gather"] += 1
+    _build.launch("patch_gather", images, images.data_ptr(),
+                  landmarks.data_ptr(), out.data_ptr(), b, h, w, c, n,
+                  patch_size, int(images.dtype == torch.bfloat16),
+                  int(landmarks.dtype == torch.bfloat16))
     return out

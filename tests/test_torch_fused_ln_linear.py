@@ -28,7 +28,6 @@ from lafs_cvpr2024_tpu_torch import _build
 from lafs_cvpr2024_tpu_torch.models.layers import Transformer
 from lafs_cvpr2024_tpu_torch.ops.fused_ln_linear import (
     FusedLNLinear,
-    _operands,
     fused_ln_linear,
     fused_ln_linear_bwd_plain,
     fused_ln_linear_fwd_plain,
@@ -97,7 +96,7 @@ def test_operands_are_contiguous_and_16_byte_aligned(dtype, offset,
     t = base[offset:offset + 8 * 64].view(8, 64)
     t = t.t() if transposed else t
     vec = base[offset:offset + 64]
-    got = _operands(t, vec)
+    got = [_build.aligned(a) for a in (t, vec)]
     for a, b in zip(got, (t, vec)):
         assert a.is_contiguous() and a.data_ptr() % 16 == 0
         assert torch.equal(a, b)

@@ -12,7 +12,7 @@ aligned one passes as it is.
 import pytest
 import torch
 
-from lafs_cvpr2024_tpu_torch.ops.fused_mlp import _aligned
+from lafs_cvpr2024_tpu_torch._build import aligned
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -21,6 +21,6 @@ def test_aligned_copies_only_a_misaligned_tensor(dtype, offset):
     base = torch.arange(64, dtype=dtype)
     base = base if base.data_ptr() % 16 == 0 else base.clone()
     t = base[offset:offset + 24]
-    got = _aligned(t)
+    got = aligned(t)
     assert torch.equal(got, t) and got.data_ptr() % 16 == 0
     assert (got.data_ptr() == t.data_ptr()) is (t.data_ptr() % 16 == 0)
