@@ -323,6 +323,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join("build", "smoke")  # relative: short unix-socket paths
 BATCH = 64                             # served batch; 128 images with flip
 TOKENS = 2 * BATCH * 197               # MLP rows of one served forward
+CELL_TOKENS = 2 * 256 * 197            # the same at the serving cells' batch
 SERVE_S = 5.0                          # length of each timed serving window
 CONFIGS = {"kernel": ("kernel", "fused_ln"), "plain": ("gather", "dense")}
 KERNELS = {
@@ -741,6 +742,24 @@ def phase_mlp(dev, seed: int) -> dict:
         require(ok, f"fused_ln_mlp kernel disagrees in {name}")
         out[name] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
                          plain_ms=plain_ms, dense_ms=dense_ms, **bnd)
+    # the serving cells' forward: 256 faces with the flip
+    ops = on_card(mlp_arrays(rng, CELL_TOKENS), dev, torch.bfloat16)
+    got, _ = fused_ln_mlp_fwd_cuda(*ops)
+    want, _ = fused_ln_mlp_fwd_plain(*ops)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, want)
+    del want
+    ms = cuda_ms(lambda: fused_ln_mlp_fwd_cuda(*ops), iters=10)
+    with torch.no_grad():
+        dense_ms = cuda_ms(dense_mlp(ops, 0.0, seed)[1], iters=10)
+    bnd = bound(4 * CELL_TOKENS * 768 * 2048, nbytes(*ops, got))
+    ok = rel <= dict(TOLS)[torch.bfloat16] and bool(torch.isfinite(got).all())
+    print(f"phase 3 fused_ln_mlp served cell T={CELL_TOKENS} bfloat16: "
+          f"rel_err={rel:.3e} kernel_ms={ms:.4f} dense_ms={dense_ms:.4f} "
+          f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, "fused_ln_mlp kernel disagrees at the serving cells' T")
+    out["cell"] = dict(max_abs_err=err, ms=ms, dense_ms=dense_ms, **bnd)
     return out
 
 
@@ -2906,7 +2925,9 @@ def main(argv=None) -> int:
             dense_ms=measured["fused_ln_mlp"]["dense_ms"],
             served={k: served_mlp["bfloat16"][k]
                     for k in ("ms", "device_ms", "dense_ms", "plain_ms",
-                              "bound_ms", "bound_by")}),
+                              "bound_ms", "bound_by")},
+            served_cell={k: served_mlp["cell"][k]
+                         for k in ("ms", "dense_ms", "bound_ms", "bound_by")}),
         "fused_ln_mlp_bwd": dict(
             device_ms=bwd["device_ms"], kernel_plus_wgrad_ms=bwd["fused_ms"],
             dense_autograd_ms=bwd["dense_ms"]),

@@ -56,9 +56,11 @@ _DROP = (_U, _U, _F, _I)
 _SIGNATURES = {
     # img, landmarks, out, B, H, W, C, N, P, img_bf16, lm_bf16, stream
     "lafs_patch_gather": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, g, bt, w1t, b1, w2t, b2, y, u (or null), T, D, H, eps, *_DROP, stream
-    "lafs_fused_ln_mlp_bf16": (_P,) * 9 + (_I, _I, _I, _F) + _DROP + (_P,),
-    "lafs_fused_ln_mlp_f32": (_P,) * 9 + (_I, _I, _I, _F) + _DROP + (_P,),
+    # x, g, bt, w1t, b1, w2t, b2, y, u (or null), xn, h and sched scratch
+    # (the Hopper design's; null for the others), T, D, H, eps, *_DROP,
+    # stream
+    "lafs_fused_ln_mlp_bf16": (_P,) * 12 + (_I, _I, _I, _F) + _DROP + (_P,),
+    "lafs_fused_ln_mlp_f32": (_P,) * 12 + (_I, _I, _I, _F) + _DROP + (_P,),
     # x, u, dy, g, bt, w1t, w2t, do, hd, du, xn, dx, dg_part, db_part,
     # T, D, H, eps, *_DROP, stream
     "lafs_fused_ln_mlp_bwd_bf16": (_P,) * 14 + (_I, _I, _I, _F) + _DROP + (_P,),
@@ -69,9 +71,10 @@ _SIGNATURES = {
     "lafs_ln_linear_bwd_partial_rows": (_I,) * 4,
     # cluster size, threads, shared memory → clusters the card co-schedules
     "lafs_max_active_clusters": (_I,) * 3,
-    # x, w1t, b1, w2t, b2, y, u (or null), T, D, H, *_DROP, stream
-    "lafs_fused_mlp_bf16": (_P,) * 7 + (_I,) * 3 + _DROP + (_P,),
-    "lafs_fused_mlp_f32": (_P,) * 7 + (_I,) * 3 + _DROP + (_P,),
+    # x, w1t, b1, w2t, b2, y, u (or null), h and sched scratch (as kernel
+    # 2's), T, D, H, *_DROP, stream
+    "lafs_fused_mlp_bf16": (_P,) * 9 + (_I,) * 3 + _DROP + (_P,),
+    "lafs_fused_mlp_f32": (_P,) * 9 + (_I,) * 3 + _DROP + (_P,),
     # u, dy, w2t, do, hd, du, T, D, H, *_DROP, stream
     "lafs_fused_mlp_bwd_bf16": (_P,) * 6 + (_I,) * 3 + _DROP + (_P,),
     "lafs_fused_mlp_bwd_f32": (_P,) * 6 + (_I,) * 3 + _DROP + (_P,),

@@ -19,42 +19,43 @@
 // fused_ln_mlp_sm90.cuh, which kernels 3-5 share) and the exact erff in the
 // first; both lie below bf16's resolution.
 //
-// What bounds it on the card. At the served shape (T = 25,216 tokens,
-// D = 768, H = 2048) the two products are 159 GFLOP against ~40 MB of
-// activations and 6.3 MB of weights: 0.16 ms of the bf16 tensor-core peak,
-// bound by operations (0.08 ms at the SSL global crops' T = 12,608, where
-// saving u adds 52 MB of stores). What the TPU kernel was for, and what
-// the design keeps: the (T, H) hidden activation never reaches device
-// memory (unless u is saved for training). The price of keeping it on chip
-// is that a block can hold only so many output rows (the (rows, 768) fp32
-// accumulator lives in registers), and every block takes in both weight
-// matrices once per its rows: the weight bytes each SM ingests, not the
-// tensor cores, bound a fused form.
+// What bounds it on the card. At the served shape (T = 100,864 tokens: a
+// request of 256 faces with the flip, 197 tokens each; D = 768, H = 2048)
+// the two products are 634.6 GFLOP: 0.642 ms at the bf16 tensor-core
+// peak, bound by operations (T = 12,608 at the SSL global crops, where
+// saving u adds 52 MB of stores).
 //
 // The design in bf16 at D = 768 with H a multiple of 256 (every full-width
-// path) is row 10's cluster form (fused_ln_mlp_sm90.cuh, mlp_fusion.cu):
-// a 2-CTA cluster owns 64 rows, so the weights are read once per 64 rows
-// (6.3 MB a cluster, ~2.5 GB a call at the served T; the first design's
-// 32-row blocks read ~5 GB), TMA feeds m64nNk16 wgmmas from a 2-stage ring,
-// and both products accumulate in registers. A CTA still ingests 393 KB of
-// weight slabs a chunk for its 64 rows (32 FLOP a byte): a 4-CTA form that
-// multicast each slab to two row pairs halved the L2 reads but not that,
-// and ran slower. Kernel 2's own parts:
-// - the prologue: the producer TMA-loads the (64, 768) x tile (rows at or
-//   past T zero-filled); the consumers normalise it in place, a warp a row
-//   (fp32 two-pass statistics, then xn = bf16(xhat * g + bt) written back
-//   into the swizzled layout), then fence the generic-proxy writes for the
-//   wgmmas' async-proxy reads and meet at a named barrier;
-// - both weights are K-major wgmma operands (the nn.Linear layout): a
-//   first-product slab of a warpgroup is three 64 x 64 boxes of w1t (64
-//   hidden units by 192 of K), a second-product slab one 192 x 64 box of
-//   w2t (192 output columns by 64 hidden units);
-// - per chunk: u = xn W1ᵀ + b1 in registers; u is stored as bf16 pairs
-//   straight from the accumulator fragments where saved (each CTA its own
-//   128 columns: 4-byte stores, 16 contiguous bytes a quad); then GELU and
-//   draw 0 in registers, the bf16 h into both CTAs' h buffers;
-// - the epilogue adds b2, applies draw 1 and stores y for rows below T.
-// Each (dropout, u saved) pair is its own template instance, so the served
+// path) is the persistent staged form of fused_ln_mlp_sm90.cuh (namespace
+// lafs_mlp_fwd): one launch a call, one CTA an SM, drawing LN tiles (xn =
+// bf16(LN(x)) into an xn scratch), hidden tiles (128 rows x 256 hidden
+// columns: u = xn W1ᵀ + b1, u stored where saved, h = drop_0(gelu(u)) in
+// bf16 into an h scratch) and output tiles (128 rows x 256 columns over
+// K = H: y = drop_1(h W2ᵀ + b2)) from one static order, each waiting on
+// flags of the tiles it reads. Both products are m64n256k16 wgmmas of two
+// consumer warpgroups from a 4-stage TMA ring of 48 KB stages. h (413 MB
+// at the served T) goes through device memory and is read back from L2
+// within about two grids' worth of tiles. The scratch is the wrapper's
+// (torch.empty), with a schedule buffer of flags and counters that it
+// zeroes once a stream; an epoch the kernel keeps there tells the
+// launches apart. The memory floor (x, xn, h and y moved once each) is
+// ~0.43 ms at 3.35 TB/s, under the tensor work. It runs near 51% of the
+// tensor peak at the served T (1.24-1.26 ms a launch on an H100); the
+// likeliest limit is the stream of slabs from L2, 48 KB a 4.2 MFLOP slab
+// (85 FLOP a byte), ~6.5 TB/s for the whole card at that pace. Without
+// GELU it ran 2% faster, without the h and y stores 7%; a 2-CTA cluster
+// that multicast
+// half of each weight slab into both CTAs cut the L2 reads by a third and
+// ran 1.8x slower (the pair waits on each other's stages).
+//
+// It replaced row 10's 64-row cluster form, which kept h on chip: the (64,
+// 768) fp32 output rows in registers and the xn tile in shared memory
+// left two 48 KB ring stages, 64 FLOP a byte of weight slabs, and GELU and
+// two cluster barriers between the products; it took 0.5277 ms at T =
+// 25,216 against the dense library form's 0.3639 and its 0.1604 ms bound.
+// Kernel 3 (the backward) keeps that form and shares the header's
+// LayerNorm, GELU (phi_as) and dropout helpers with this one. Each
+// (dropout, u saved) pair is its own template instance, so the served
 // rate-0 path carries neither branch, and no product sits in a runtime
 // branch (ptxas serialises every wgmma of such a kernel: warning C7520).
 //
@@ -62,7 +63,8 @@
 // first design: nvcuda::wmma 16x16x16 over 32-row blocks through shared
 // memory (fused_mlp_fwd.cuh); fp32 (the --eval-dtype float32 path and the
 // precision check) runs its scalar FMA loop. The C entry points choose by
-// (dtype, D, H).
+// (dtype, D, H); the wrapper counts a call off the Hopper design as
+// mlp.first_design.
 
 #include "fused_ln_mlp_sm90.cuh"
 #include "fused_mlp_fwd.cuh"
@@ -73,31 +75,36 @@ namespace hop {
 
 using namespace lafs_ln_mlp_sm90;
 
-// The body is fused_ln_mlp_sm90.cuh::mlp_fwd_cta with the LayerNorm.
+// The body is fused_ln_mlp_sm90.cuh's lafs_mlp_fwd::run with the LayerNorm.
 template <bool DROP, bool SAVE_U>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS, 1)
 ln_mlp_fwd_sm90(const __grid_constant__ CUtensorMap mx,
+                const __grid_constant__ CUtensorMap mxn,
                 const __grid_constant__ CUtensorMap mw1,
+                const __grid_constant__ CUtensorMap mh,
                 const __grid_constant__ CUtensorMap mw2,
                 const bf16* __restrict__ g, const bf16* __restrict__ bt,
                 const bf16* __restrict__ b1, const bf16* __restrict__ b2,
-                bf16* __restrict__ y, bf16* __restrict__ u_out, int T_rows,
-                int H, float eps, Dropout drop) {
+                bf16* __restrict__ y, bf16* __restrict__ u_out,
+                bf16* __restrict__ xn, bf16* __restrict__ hs, float eps,
+                Dropout drop, lafs_mlp_fwd::Plan plan) {
   extern __shared__ unsigned char smem_raw[];
-  mlp_fwd_cta<true, DROP, SAVE_U>(smem_raw, &mx, &mw1, &mw2, g, bt, b1, b2, y,
-                                  u_out, T_rows, H, eps, drop);
+  lafs_mlp_fwd::run<true, DROP, SAVE_U>(smem_raw, &mx, &mxn, &mw1, &mh, &mw2,
+                                        g, bt, b1, b2, y, u_out, xn, hs, eps,
+                                        drop, plan);
 }
 
 cudaError_t run(const void* x, const void* g, const void* bt, const void* w1t,
                 const void* b1, const void* w2t, const void* b2, void* y,
-                void* u, int T_rows, int H, float eps, Dropout drop,
-                cudaStream_t s) {
+                void* u, void* xn, void* hs, void* sched, int T_rows, int H,
+                float eps, Dropout drop, cudaStream_t s) {
   auto kernel = drop.on ? (u ? ln_mlp_fwd_sm90<true, true>
                              : ln_mlp_fwd_sm90<true, false>)
                         : (u ? ln_mlp_fwd_sm90<false, true>
                              : ln_mlp_fwd_sm90<false, false>);
-  return lafs_ln_mlp_sm90_host::launch_fwd(kernel, x, g, bt, w1t, b1, w2t, b2,
-                                           y, u, T_rows, H, eps, drop, s);
+  return lafs_ln_mlp_sm90_host::launch_fwd<true>(kernel, x, g, bt, w1t, b1,
+                                                 w2t, b2, y, u, xn, hs, sched,
+                                                 T_rows, H, eps, drop, s);
 }
 
 // An empty kernel for cudaOccupancyMaxActiveClusters: the launch shape
@@ -152,21 +159,27 @@ cudaError_t launch_bf16(const void* x, const void* g, const void* bt,
 // Widths the kernels take: D a multiple of 128 up to 768, H a multiple of
 // 128 (the Python wrapper checks the same and raises before calling); D =
 // 768 with H a multiple of 256 runs the Hopper design, which also needs x,
-// g, bt, b1, b2 and the weights 16-byte aligned (TMA, 16-byte loads). `u`
-// may be null (no saved pre-activation); `drop` = 0 turns dropout off, and
-// then seed, thresh and inv_keep are not read.
+// g, bt, b1, b2 and the weights 16-byte aligned (TMA, 16-byte loads) and
+// the scratch of fused_ln_mlp_sm90.cuh::launch_fwd: xn (ceil(T / 128) · 128,
+// 768), h (that many rows, H) and `sched`, SCHED_WORDS + ceil(T / 128) ·
+// (1 + H / 256) 32-bit words zeroed before the stream's first launch (the
+// first design and fp32 read none of the three). `u` may be null (no saved
+// pre-activation); `drop` = 0 turns dropout off, and then seed, thresh and
+// inv_keep are not read.
 extern "C" int lafs_fused_ln_mlp_bf16(const void* x, const void* g, const void* bt,
                                       const void* w1t, const void* b1,
                                       const void* w2t, const void* b2, void* y,
-                                      void* u, int T_rows, int D, int H,
-                                      float eps, unsigned seed, unsigned thresh,
+                                      void* u, void* xn, void* h, void* sched,
+                                      int T_rows, int D, int H, float eps,
+                                      unsigned seed, unsigned thresh,
                                       float inv_keep, int drop, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (T_rows <= 0) return cudaSuccess;
   if (H % HC) return cudaErrorInvalidValue;
   const Dropout dr = make_dropout(seed, thresh, inv_keep, drop, 128);
   if (lafs_ln_mlp_sm90::takes(D, H))
-    return hop::run(x, g, bt, w1t, b1, w2t, b2, y, u, T_rows, H, eps, dr, s);
+    return hop::run(x, g, bt, w1t, b1, w2t, b2, y, u, xn, h, sched, T_rows, H,
+                    eps, dr, s);
   switch (D) {
     case 128: return launch_bf16<1>(x, g, bt, w1t, b1, w2t, b2, y, u, T_rows, H, eps, dr, s);
     case 256: return launch_bf16<2>(x, g, bt, w1t, b1, w2t, b2, y, u, T_rows, H, eps, dr, s);
@@ -201,11 +214,13 @@ extern "C" int lafs_max_active_clusters(int cluster, int threads, int smem) {
   return err == cudaSuccess ? n : -(int)err;
 }
 
+// The bf16 entry's arguments (xn, h and sched unread).
 extern "C" int lafs_fused_ln_mlp_f32(const void* x, const void* g, const void* bt,
                                      const void* w1t, const void* b1,
                                      const void* w2t, const void* b2, void* y,
-                                     void* u, int T_rows, int D, int H,
-                                     float eps, unsigned seed, unsigned thresh,
+                                     void* u, void* xn, void* h, void* sched,
+                                     int T_rows, int D, int H, float eps,
+                                     unsigned seed, unsigned thresh,
                                      float inv_keep, int drop, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (T_rows <= 0) return cudaSuccess;

@@ -79,6 +79,13 @@ struct Dropout {
     const uint32_t t = (uint32_t)(row / tile), r = (uint32_t)(row % tile);
     return (r * 2654435761u) ^ (seed + t * 0xB5297A4Du + draw * 0x85EBCA6Bu);
   }
+  // row_key of a row below 2^32 in 32-bit arithmetic: a 64-bit division
+  // is a call, around which the registers live across it spill
+  __device__ __forceinline__ uint32_t row_key32(uint32_t row,
+                                                uint32_t draw) const {
+    const uint32_t t = row / (uint32_t)tile, r = row % (uint32_t)tile;
+    return (r * 2654435761u) ^ (seed + t * 0xB5297A4Du + draw * 0x85EBCA6Bu);
+  }
   __device__ __forceinline__ bool keep_col(uint32_t rk, int col) const {
     uint32_t v = rk ^ ((uint32_t)col * 0x9E3779B9u);
     v = (v ^ (v >> 16)) * 0x7FEB352Du;

@@ -6,8 +6,8 @@
 // (_fwd_kernel, called from _fwd_call):
 //     u = x @ W1 + b1 (fp32 accumulate), optionally saved in x's dtype
 //     y = drop_1(drop_0(gelu(u)) @ W2 + b2), h cast to x's dtype first
-// It is kernel 2 without the LayerNorm prologue, in both designs: the same
-// bodies, the same tiling and the same dropout hash (keyed by the JAX
+// It is kernel 2 without the LayerNorm, in both designs: the same bodies,
+// the same tiling and the same dropout hash (keyed by the JAX
 // kernel's row tile, draw 0 for h, draw 1 for y), so kernel 5
 // (fused_mlp_bwd.cu) regenerates its masks and the plain PyTorch version
 // and the JAX CPU reference draw the same bits.
@@ -16,21 +16,16 @@
 // tokens, D = 768, H = 2048, bf16, rate 0.1, u saved) the two products are
 // 159 GFLOP against ~185 MB of compulsory traffic (x, y, the saved u and
 // the weights): 0.16 ms of the bf16 tensor-core peak, bound by operations.
-// What the TPU kernel was for, and what both designs keep: the (T, H)
-// hidden activation and the masks never reach device memory (the saved u
-// aside). A fused form takes in both weights once per row tile, so the
-// weight bytes each SM ingests, more than the tensor cores, bound it.
 //
 // The design in bf16 at D = 768 with H a multiple of 256 (every full-width
-// path) is kernel 2's Hopper design (fused_ln_mlp_sm90.cuh::mlp_fwd_cta
-// with LN = false, launched as mlp_fwd_sm90): a 2-CTA cluster owns 64 rows
-// (the weights read once per 64 rows, ~2.5 GB of L2 a call at T = 25,216),
-// TMA feeds m64nNk16 wgmmas from a 2-stage ring, both products accumulate
-// in registers, the chunk's h is exchanged through distributed shared
-// memory. The consumers wait only for the x tile before the first wgmma:
-// no prologue, no proxy fence. Each (dropout, u saved) pair is its own
-// template instance. The name holds no "ln_mlp_", so that profiles tell it
-// from kernel 2.
+// path) is kernel 2's persistent staged form (fused_ln_mlp_sm90.cuh,
+// lafs_mlp_fwd::run with LN = false, launched as mlp_fwd_sm90) without its
+// LN tiles: the
+// hidden tiles read x itself through TMA (rows at or past T zero-filled),
+// h goes through the wrapper's h scratch and back from L2, both products
+// are 128-row m64n256k16 wgmma tiles from a 4-stage ring. Each (dropout, u
+// saved) pair is its own template instance. The name holds no "ln_mlp_",
+// so that profiles tell it from kernel 2.
 //
 // Other widths (D a multiple of 128 up to 640, or H % 256 = 128) keep the
 // first design: 32-row blocks, each of which re-reads both weights from L2
@@ -47,33 +42,37 @@ namespace hop {
 
 using namespace lafs_ln_mlp_sm90;
 
-// The body is fused_ln_mlp_sm90.cuh::mlp_fwd_cta without the LayerNorm;
-// the parameters are kernel 2's (g, bt and eps unused), so that one host
-// launch serves both.
+// The body is fused_ln_mlp_sm90.cuh's lafs_mlp_fwd::run without the
+// LayerNorm; the parameters are kernel 2's (mxn, g, bt, xn and eps
+// unused), so that one host launch serves both.
 template <bool DROP, bool SAVE_U>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS, 1)
 mlp_fwd_sm90(const __grid_constant__ CUtensorMap mx,
+             const __grid_constant__ CUtensorMap mxn,
              const __grid_constant__ CUtensorMap mw1,
+             const __grid_constant__ CUtensorMap mh,
              const __grid_constant__ CUtensorMap mw2,
              const bf16* __restrict__ g, const bf16* __restrict__ bt,
              const bf16* __restrict__ b1, const bf16* __restrict__ b2,
-             bf16* __restrict__ y, bf16* __restrict__ u_out, int T_rows, int H,
-             float eps, Dropout drop) {
+             bf16* __restrict__ y, bf16* __restrict__ u_out,
+             bf16* __restrict__ xn, bf16* __restrict__ hs, float eps,
+             Dropout drop, lafs_mlp_fwd::Plan plan) {
   extern __shared__ unsigned char smem_raw[];
-  mlp_fwd_cta<false, DROP, SAVE_U>(smem_raw, &mx, &mw1, &mw2, g, bt, b1, b2,
-                                   y, u_out, T_rows, H, eps, drop);
+  lafs_mlp_fwd::run<false, DROP, SAVE_U>(smem_raw, &mx, &mx, &mw1, &mh,
+                                         &mw2, g, bt, b1, b2, y, u_out, xn,
+                                         hs, eps, drop, plan);
 }
 
 cudaError_t run(const void* x, const void* w1t, const void* b1,
-                const void* w2t, const void* b2, void* y, void* u, int T_rows,
-                int H, Dropout drop, cudaStream_t s) {
+                const void* w2t, const void* b2, void* y, void* u, void* hs,
+                void* sched, int T_rows, int H, Dropout drop, cudaStream_t s) {
   auto kernel = drop.on ? (u ? mlp_fwd_sm90<true, true>
                              : mlp_fwd_sm90<true, false>)
                         : (u ? mlp_fwd_sm90<false, true>
                              : mlp_fwd_sm90<false, false>);
-  return lafs_ln_mlp_sm90_host::launch_fwd(kernel, x, nullptr, nullptr, w1t,
-                                           b1, w2t, b2, y, u, T_rows, H, 0.0f,
-                                           drop, s);
+  return lafs_ln_mlp_sm90_host::launch_fwd<false>(
+      kernel, x, nullptr, nullptr, w1t, b1, w2t, b2, y, u, nullptr, hs, sched,
+      T_rows, H, 0.0f, drop, s);
 }
 
 }  // namespace hop
@@ -118,19 +117,21 @@ cudaError_t launch_bf16(const void* x, const void* w1t, const void* b1,
 // Widths as kernel 2: D a multiple of 128 up to 768, H a multiple of 128
 // (checked by the Python wrapper); D = 768 with H a multiple of 256 runs
 // the Hopper design, which also needs x, b1, b2 and the weights 16-byte
-// aligned (TMA, 4-byte pair loads). `u` may be null; `drop` = 0 turns
-// dropout off, and then seed, thresh and inv_keep are not read.
+// aligned (TMA, 4-byte pair loads) and kernel 2's h and `sched` scratch
+// (fused_ln_mlp.cu; no xn). `u` may be null; `drop` = 0 turns dropout off,
+// and then seed, thresh and inv_keep are not read.
 extern "C" int lafs_fused_mlp_bf16(const void* x, const void* w1t,
                                    const void* b1, const void* w2t,
-                                   const void* b2, void* y, void* u, int T_rows,
-                                   int D, int H, unsigned seed, unsigned thresh,
+                                   const void* b2, void* y, void* u, void* h,
+                                   void* sched, int T_rows, int D, int H,
+                                   unsigned seed, unsigned thresh,
                                    float inv_keep, int drop, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (T_rows <= 0) return cudaSuccess;
   if (H % HC) return cudaErrorInvalidValue;
   const Dropout dr = make_dropout(seed, thresh, inv_keep, drop, 128);
   if (lafs_ln_mlp_sm90::takes(D, H))
-    return hop::run(x, w1t, b1, w2t, b2, y, u, T_rows, H, dr, s);
+    return hop::run(x, w1t, b1, w2t, b2, y, u, h, sched, T_rows, H, dr, s);
 #define LAFS_FWD_CASE(NT) \
   case NT * 128:          \
     return launch_bf16<NT>(x, w1t, b1, w2t, b2, y, u, T_rows, H, dr, s);
@@ -146,10 +147,12 @@ extern "C" int lafs_fused_mlp_bf16(const void* x, const void* w1t,
 #undef LAFS_FWD_CASE
 }
 
+// The bf16 entry's arguments (h and sched unread).
 extern "C" int lafs_fused_mlp_f32(const void* x, const void* w1t,
                                   const void* b1, const void* w2t,
-                                  const void* b2, void* y, void* u, int T_rows,
-                                  int D, int H, unsigned seed, unsigned thresh,
+                                  const void* b2, void* y, void* u, void* h,
+                                  void* sched, int T_rows, int D, int H,
+                                  unsigned seed, unsigned thresh,
                                   float inv_keep, int drop, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (T_rows <= 0) return cudaSuccess;

@@ -20,7 +20,10 @@ Four kernels carry them on the card, each beside its plain PyTorch version
   ``(do, hd, du)``: kernel 3's prologue and first product;
   all four in bf16 at D = 768 with H a multiple of 256 (every full-width
   path) in their Hopper design (``csrc/fused_ln_mlp_sm90.cuh``), other
-  widths and fp32 in their first, as the C entry points choose.
+  widths and fp32 in their first, as the C entry points choose
+  (:func:`hopper_design`; a CUDA forward off it counts
+  ``mlp.first_design``). The Hopper forward stages xn and h through
+  scratch that its wrapper allocates (:func:`_forward_scratch`).
 
 :class:`FusedLNMLP` and :class:`FusedMLP` join them into autograd
 functions; the weight gradients (and kernel 5's ``dx = du·W1``) are plain
@@ -45,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..utils import tracing
 
 _M32 = 0xFFFFFFFF
 
@@ -180,13 +184,68 @@ def _drop_args(rate: float, seed: int):
     return seed & _M32, keep_threshold(rate), inv_keep(rate), 1
 
 
+def hopper_design(dtype: torch.dtype, d: int, hdim: int) -> bool:
+    """Whether kernels 2-5 run their Hopper design at these widths, as the
+    C entry points choose (``fused_ln_mlp_sm90.cuh::takes`` in bf16): bf16
+    at D = 768 with H a positive multiple of 256."""
+    return dtype == torch.bfloat16 and d == 768 and hdim > 0 \
+        and hdim % 256 == 0
+
+
+def count_first_design(dtype: torch.dtype, d: int, hdim: int) -> bool:
+    """:func:`hopper_design`; a forward off it counts ``mlp.first_design``
+    (0 on every path whose widths are the model's)."""
+    hop = hopper_design(dtype, d, hdim)
+    if not hop:
+        tracing.count("mlp.first_design")
+    return hop
+
+
+#: rows of the Hopper forward's row block (``lafs_mlp_fwd::BM``): its
+#: scratch has a multiple of them
+_ROW_BLOCK = 128
+#: ``lafs_mlp_fwd::SCHED_WORDS``: the schedule buffer's words before the flags
+_SCHED_WORDS = 4
+#: (device, stream) → the Hopper forward's schedule buffer (int32), zeroed
+#: when made; the kernel keeps its counters and epoch in step after that
+_schedules: dict = {}
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _forward_scratch(x, hdim: int, ln: bool):
+    """``(xn, h, sched)`` for a forward of kernel 2 (``ln``) or 4 on x (T,
+    D): the Hopper design's xn (kernel 2) and h, ``torch.empty`` with T
+    padded to the row block, and the schedule buffer of x's device and
+    current stream (one flag per LN and hidden tile of a row block after
+    ``_SCHED_WORDS`` counters), made zeroed and grown by doubling; None
+    for each where the first design runs."""
+    t, d = x.shape
+    if not count_first_design(x.dtype, d, hdim):
+        return None, None, None
+    rows = -(-t // _ROW_BLOCK) * _ROW_BLOCK
+    xn = x.new_empty((rows, d)) if ln else None
+    h = x.new_empty((rows, hdim))
+    words = _SCHED_WORDS + rows // _ROW_BLOCK * (1 + hdim // 256)
+    key = (x.device.index, _build.stream_ptr(x))
+    sched = _schedules.get(key)
+    if sched is None or sched.numel() < words:
+        size = max(words, 2 * sched.numel() if sched is not None else 0)
+        sched = _schedules[key] = torch.zeros(size, dtype=torch.int32,
+                                              device=x.device)
+    return xn, h, sched
+
+
 def fused_ln_mlp_fwd_cuda(x, g, bt, w1, b1, w2, b2, *, eps: float = 1e-5,
                           rate: float = 0.0, seed: int = 0,
                           save_u: bool = False):
     """Launch kernel 2 on x (T, D) on its CUDA device (every operand in x's
     dtype, D a multiple of 128 up to 768, H a multiple of 128; bf16 at D =
-    768 with H a multiple of 256 in the Hopper design). Returns ``(y, u)``
-    as :func:`fused_ln_mlp_fwd_plain`."""
+    768 with H a multiple of 256 in the Hopper design, one persistent
+    launch with its scratch). Returns ``(y, u)`` as
+    :func:`fused_ln_mlp_fwd_plain`."""
     d, hdim = x.shape[-1], w1.shape[0]
     ops = (g, bt, w1, b1, w2, b2)
     _check("fused_ln_mlp_fwd_cuda", x, ops, d, hdim)
@@ -202,11 +261,11 @@ def fused_ln_mlp_fwd_cuda(x, g, bt, w1, b1, w2, b2, *, eps: float = 1e-5,
     t = x.shape[0]
     y = torch.empty_like(x)
     u = x.new_empty((t, hdim)) if save_u else None
+    xn, h, sched = _forward_scratch(x, hdim, ln=True)
     _build.launch("fused_ln_mlp", x, x.data_ptr(), g.data_ptr(),
                   bt.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                  b2.data_ptr(), y.data_ptr(),
-                  u.data_ptr() if save_u else None, t, d, hdim, float(eps),
-                  *_drop_args(rate, seed))
+                  b2.data_ptr(), y.data_ptr(), _ptr(u), _ptr(xn), _ptr(h),
+                  _ptr(sched), t, d, hdim, float(eps), *_drop_args(rate, seed))
     return y, u
 
 
@@ -357,8 +416,8 @@ def fused_mlp_fwd_cuda(x, w1, b1, w2, b2, *, rate: float = 0.0,
                        seed: int = 0, save_u: bool = False):
     """Launch kernel 4 on x (T, D) on its CUDA device (every operand in x's
     dtype, D a multiple of 128 up to 768, H a multiple of 128; bf16 at D =
-    768 with H a multiple of 256 in the Hopper design). Returns ``(y, u)``
-    as :func:`fused_mlp_fwd_plain`."""
+    768 with H a multiple of 256 in kernel 2's Hopper design without its LN
+    tiles). Returns ``(y, u)`` as :func:`fused_mlp_fwd_plain`."""
     d, hdim = x.shape[-1], w1.shape[0]
     ops = (w1, b1, w2, b2)
     _check("fused_mlp_fwd_cuda", x, ops, d, hdim)
@@ -373,10 +432,10 @@ def fused_mlp_fwd_cuda(x, w1, b1, w2, b2, *, rate: float = 0.0,
     t = x.shape[0]
     y = torch.empty_like(x)
     u = x.new_empty((t, hdim)) if save_u else None
+    _, h, sched = _forward_scratch(x, hdim, ln=False)
     _build.launch("fused_mlp", x, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                  w2.data_ptr(), b2.data_ptr(), y.data_ptr(),
-                  u.data_ptr() if save_u else None, t, d, hdim,
-                  *_drop_args(rate, seed))
+                  w2.data_ptr(), b2.data_ptr(), y.data_ptr(), _ptr(u),
+                  _ptr(h), _ptr(sched), t, d, hdim, *_drop_args(rate, seed))
     return y, u
 
 

@@ -211,3 +211,22 @@ def test_check_operands_refuses_what_no_kernel_takes(ops, kw, error, match):
 ])
 def test_check_operands_passes_what_the_kernels_take(ops, kw):
     _build.check_operands("k", *ops, **kw)
+
+
+@pytest.mark.parametrize("name,pointers,ints", [
+    ("lafs_fused_ln_mlp_bf16", 12, 3),  # x .. b2, y, u, xn, h, sched
+    ("lafs_fused_ln_mlp_f32", 12, 3),
+    ("lafs_fused_mlp_bf16", 9, 3),      # x .. b2, y, u, h, sched
+    ("lafs_fused_mlp_f32", 9, 3),
+])
+def test_forward_entry_points_take_their_scratch(name, pointers, ints):
+    """Kernels 2 and 4 take the Hopper forward's scratch pointers after u
+    and before T, D, H: every dtype's export, so one wrapper call serves
+    both."""
+    sig = _build._SIGNATURES[name]
+    assert sig[:pointers] == (ctypes.c_void_p,) * pointers
+    assert sig[pointers:pointers + ints] == (ctypes.c_int,) * ints
+    params = EXPORTED[name]
+    assert [p.split()[-1].lstrip("*") for p in params[7:pointers]] == (
+        ["y", "u", "xn", "h", "sched"] if "ln_mlp" in name
+        else ["y", "u", "h", "sched"])[-(pointers - 7):]

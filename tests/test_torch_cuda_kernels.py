@@ -14,7 +14,9 @@ fp32 in another order, and a 1-ulp flip of a bf16 intermediate moves the
 output), with and without the LayerNorm (kernels 2-5, all four also in
 their Hopper design, bf16 at D 768 and H 256, 512 and 2048, at T from 1
 to 333 across the edges of the 64-row tile and of the hash's 128-row
-tile, every (rate, u saved) instance, kernel 3's one dγ/dβ partial row a
+tile, the forwards also at T 37, 12,653 and 40,000 and in back-to-back
+calls of different T on one stream, one launch a call, every (rate, u
+saved) instance, kernel 3's one dγ/dβ partial row a
 cluster, the profiler naming the Hopper instances on that path and only
 there, misaligned operands copied to aligned ones by the wrappers),
 and so do the LN-fused linear's forward and backward (kernels 8 and 9) at any output
@@ -260,22 +262,38 @@ def test_fused_autograd_function_launches_both_kernels(cuda):
         assert _rel(a, b) <= 1e-4
 
 
+def _assert_output_mask(got, want, keep):
+    """The output mask of a forward, bit for bit: the plain version is 0
+    wherever ``keep`` drops, and the kernel's zeros are the drops and the
+    plain version's own zeros (a kept y that is itself 0: the card tests'
+    operands give one in the 9.7 million outputs of T = 12,653 at H 256,
+    in the kernel and the plain version alike)."""
+    assert not bool((want != 0)[~keep].any())
+    assert torch.equal(got != 0, keep & (want != 0))
+
+
 # Kernels 2 and 3 in their Hopper design (bf16, D = 768, H a multiple of
 # 256): T at the edges of the 64-row cluster tile and of the hash's 128-row
 # tile, and a ragged T
 SM90_T = [1, 63, 64, 65, 127, 128, 129, 333]
+# the forwards (2 and 4) also below one 128-row block, ragged past a
+# multiple of it, and with more tiles than the card keeps resident, so
+# that tiles wait on flags of tiles that other CTAs finish
+SM90_FWD_T = SM90_T + [37, 12_608 + 45, 40_000]
+FWD_INSTANCES = [(0.0, False), (0.0, True), (0.1, False), (0.1, True)]
 
 
 @pytest.mark.parametrize("h", [256, 512, 2048])
-@pytest.mark.parametrize("t", SM90_T)
-@pytest.mark.parametrize("rate,save_u", [(0.0, False), (0.0, True),
-                                         (0.1, False), (0.1, True)])
+@pytest.mark.parametrize("t", SM90_FWD_T)
+@pytest.mark.parametrize("rate,save_u", FWD_INSTANCES)
 def test_fused_ln_mlp_hopper_design_matches_plain(cuda, h, t, rate, save_u):
-    """Kernel 2's Hopper design: y (and u) within 2e-2 of the plain
-    version, finite, and the output mask its bits."""
+    """Kernel 2's Hopper design: one launch a call; y (and u) within 2e-2
+    of the plain version, finite, and the output mask its bits."""
     ops = _mlp_operands(cuda, torch.bfloat16, t, 768, h, seed=t + h)
     kw = dict(rate=rate, seed=4321, save_u=save_u)
+    before = _build.LAUNCHES["fused_ln_mlp"]
     got, u = fused_ln_mlp_fwd_cuda(*ops, **kw)
+    assert _build.LAUNCHES["fused_ln_mlp"] == before + 1
     want, u_want = fused_ln_mlp_fwd_plain(*ops, **kw)
     torch.cuda.synchronize()
     assert got.shape == (t, 768) and bool(torch.isfinite(got).all())
@@ -286,7 +304,35 @@ def test_fused_ln_mlp_hopper_design_matches_plain(cuda, h, t, rate, save_u):
         assert u is None
     if rate:
         m2 = dropout_mask(t, 768, 4321, rate, 1, torch.bfloat16, cuda)
-        assert torch.equal(got != 0, m2) and torch.equal(want != 0, m2)
+        _assert_output_mask(got, want, m2)
+
+
+@pytest.mark.parametrize("forward", ["fused_ln_mlp", "fused_mlp"])
+@pytest.mark.parametrize("rate,save_u", FWD_INSTANCES)
+def test_hopper_forward_back_to_back_calls_match_plain(cuda, forward, rate,
+                                                       save_u):
+    """Kernels 2 and 4 at T 40,000, then 333, then 40,000 again on one
+    stream without a synchronise between them: each output within 2e-2 of
+    its plain version (a schedule left stale by the call before, its epoch
+    or its counts, would hang or skip tiles), one launch a call."""
+    cuda_fn, plain = {
+        "fused_ln_mlp": (fused_ln_mlp_fwd_cuda, fused_ln_mlp_fwd_plain),
+        "fused_mlp": (fused_mlp_fwd_cuda, fused_mlp_fwd_plain)}[forward]
+    kw = dict(rate=rate, seed=2468, save_u=save_u)
+    calls = []
+    for t in (40_000, 333, 40_000):
+        ops = _mlp_operands(cuda, torch.bfloat16, t, 768, 2048, seed=t + 7)
+        if forward == "fused_mlp":
+            ops = [ops[0], *ops[3:]]
+        before = _build.LAUNCHES[forward]
+        calls.append((ops, cuda_fn(*ops, **kw)))
+        assert _build.LAUNCHES[forward] == before + 1
+    torch.cuda.synchronize()
+    for ops, (got, u) in calls:
+        want, u_want = plain(*ops, **kw)
+        assert bool(torch.isfinite(got).all()) and _rel(got, want) <= 2e-2
+        if save_u:
+            assert _rel(u, u_want) <= 2e-2
 
 
 @pytest.mark.parametrize("h", [256, 512, 2048])
@@ -503,7 +549,8 @@ def test_fused_attention_kernel_at_the_served_shape(cuda):
 def test_served_forward_launches_kernel_6_once_a_block(cuda, tmp_path):
     """A Part-fViT-B ``.pth`` through ``load_eval_model``, in bf16 under
     inference mode, traced: 12 kernel 6 launches a forward, no fallback
-    to the einsum path, embeddings at cosine ≥ 1 − 1e-3 of the same
+    to the einsum path, 12 kernel 2 launches none of them off its Hopper
+    design, embeddings at cosine ≥ 1 − 1e-3 of the same
     weights with ``attn_impl='einsum'``."""
     pth = str(tmp_path / "partfvit_b.pth")
     cfg = PartFViTConfig(loss_type="None", num_classes=0)
@@ -526,6 +573,9 @@ def test_served_forward_launches_kernel_6_once_a_block(cuda, tmp_path):
         tracing.reset()
     assert counters.get("launch.fused_attention") == 12
     assert "attn.fused_fallback" not in counters
+    # kernel 2 once a block, in its Hopper design
+    assert counters.get("launch.fused_ln_mlp") == 12
+    assert "mlp.first_design" not in counters
     with torch.inference_mode():
         want = plain(x).float()
     assert torch.nn.functional.cosine_similarity(got, want).min() >= 1 - 1e-3
@@ -608,17 +658,18 @@ def test_fused_mlp_autograd_launches_both_kernels(cuda):
 
 
 @pytest.mark.parametrize("h", [256, 512, 2048])
-@pytest.mark.parametrize("t", SM90_T)
-@pytest.mark.parametrize("rate,save_u", [(0.0, False), (0.0, True),
-                                         (0.1, False), (0.1, True)])
+@pytest.mark.parametrize("t", SM90_FWD_T)
+@pytest.mark.parametrize("rate,save_u", FWD_INSTANCES)
 def test_fused_mlp_hopper_design_matches_plain(cuda, h, t, rate, save_u):
     """Kernel 4's Hopper design (kernel 2's body without the LayerNorm):
-    y (and u) within 2e-2 of the plain version, finite, and the output
-    mask its bits."""
+    one launch a call; y (and u) within 2e-2 of the plain version, finite,
+    and the output mask its bits."""
     x, _, _, w1, b1, w2, b2 = _mlp_operands(cuda, torch.bfloat16, t, 768, h,
                                             seed=t + h + 2)
     kw = dict(rate=rate, seed=8642, save_u=save_u)
+    before = _build.LAUNCHES["fused_mlp"]
     got, u = fused_mlp_fwd_cuda(x, w1, b1, w2, b2, **kw)
+    assert _build.LAUNCHES["fused_mlp"] == before + 1
     want, u_want = fused_mlp_fwd_plain(x, w1, b1, w2, b2, **kw)
     torch.cuda.synchronize()
     assert got.shape == (t, 768) and bool(torch.isfinite(got).all())
@@ -630,7 +681,7 @@ def test_fused_mlp_hopper_design_matches_plain(cuda, h, t, rate, save_u):
         assert u is None
     if rate:
         m2 = dropout_mask(t, 768, 8642, rate, 1, torch.bfloat16, cuda)
-        assert torch.equal(got != 0, m2) and torch.equal(want != 0, m2)
+        _assert_output_mask(got, want, m2)
 
 
 @pytest.mark.parametrize("h", [256, 512, 2048])
