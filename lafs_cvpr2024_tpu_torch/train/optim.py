@@ -17,6 +17,7 @@ equal. No function here writes into its arguments.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -34,6 +35,38 @@ class AdamWState:
     count: int
     mu: Tree
     nu: Tree
+
+
+class FlatTree(dict):
+    """Tensors keyed by name that are views of one buffer ``flat``: one
+    pass over ``flat`` is a pass over every leaf."""
+
+    def __init__(self, names, shapes, flat: torch.Tensor):
+        self.shapes = [torch.Size(s) for s in shapes]
+        sizes = [math.prod(s) for s in self.shapes]
+        super().__init__(zip(names, (v.view(s) for v, s in
+                                     zip(flat.split(sizes), self.shapes))))
+        self.flat = flat
+
+    @classmethod
+    def copy_of(cls, tree: dict, dtype=None) -> "FlatTree":
+        """A copy of ``tree`` (cast to ``dtype``) in one new buffer, made by
+        one copy of a :class:`FlatTree`'s buffer, else a ``_foreach_copy_``
+        over the leaves."""
+        if isinstance(tree, FlatTree):
+            return tree.like(tree.flat.to(dtype or tree.flat.dtype,
+                                          copy=True))
+        leaves = list(tree.values())
+        flat = torch.empty(sum(t.numel() for t in leaves),
+                           dtype=dtype or leaves[0].dtype,
+                           device=leaves[0].device)
+        out = cls(list(tree), [t.shape for t in leaves], flat)
+        torch._foreach_copy_(list(out.values()), leaves)
+        return out
+
+    def like(self, flat: torch.Tensor) -> "FlatTree":
+        """The same names and shapes over another buffer."""
+        return FlatTree(list(self), self.shapes, flat)
 
 
 def as_f32(x) -> float:
@@ -169,11 +202,50 @@ def ema_update(teacher: Tree, student: Tree, momentum) -> Tree:
             for n, t in teacher.items()}
 
 
+def _one_layout(*trees) -> bool:
+    """Every tree a float32 :class:`FlatTree` of the same names and
+    shapes."""
+    return all(isinstance(t, FlatTree) and t.flat.dtype == f32
+               and list(t) == list(trees[0]) and t.shapes == trees[0].shapes
+               for t in trees)
+
+
+def _adamw_flat(grads, state, params, count, c1, c2, wd, wd_scale, rates,
+                keep, b1, b2, eps):
+    """:func:`fused_adamw_ema_update`'s AdamW on float32 :class:`FlatTree`
+    operands: each element-wise pass one launch over the whole buffer, the
+    per-parameter weight decay and lr ``_foreach`` passes over its views.
+    The same operations in the same order as the per-list form; the
+    divisions by the bias corrections divide by a tensor, as the
+    ``_foreach`` division does, rather than multiply by a reciprocal."""
+    g, p = grads.flat, params.flat
+    m = state.mu.flat * b1
+    m += g * (1 - b1)
+    v = state.nu.flat * b2
+    v += g * g * (1 - b2)
+    denom = (v / torch.full((), c2, device=v.device)).sqrt_().add_(eps)
+    step = m / torch.full((), c1, device=m.device)
+    step /= denom
+    views, p_views = list(params.like(step).values()), list(params.values())
+    names = list(params)
+    for ws in sorted({wd_scale.get(n, 1.0) for n in names} - {0.0}):
+        idx = [i for i, n in enumerate(names) if wd_scale.get(n, 1.0) == ws]
+        torch._foreach_add_([views[i] for i in idx], torch._foreach_mul(
+            [p_views[i] for i in idx], wd * ws))
+    if keep is not None:
+        step *= keep
+    torch._foreach_mul_(views, rates)
+    return (params.like(p - step),
+            AdamWState(count, params.like(m), params.like(v)), None)
+
+
 def fused_adamw_ema_update(
     grads: Tree, state: AdamWState, params: Tree, teacher: Optional[Tree],
     lr, wd, momentum, wd_scale: Optional[Dict[str, float]] = None,
     gate: Optional[Dict[str, float]] = None, gate_scalar=1.0,
     clip: float = 0.0, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+    lr_scale: Optional[Dict[str, float]] = None,
+    keep: Optional[torch.Tensor] = None,
 ) -> Tuple[Tree, AdamWState, Optional[Tree]]:
     """The whole SSL update tail in one pass over the parameters
     (``optim.py:442-529``): per-parameter gates (gate 1: gradient scaled by
@@ -183,17 +255,33 @@ def fused_adamw_ema_update(
     :func:`zero_grads_by_path` + gating + :func:`clip_grads_per_param` +
     :func:`adamw_update` + :func:`ema_update`.
 
+    ``lr_scale`` holds per-parameter lr factors (default 1; BEiT's layer
+    decay in the supervised step), multiplied into the lr in float32 as
+    :func:`adamw_update` does. ``keep``, a 0-d 0/1 float32 tensor on the
+    parameters' device, multiplies every parameter's step: 0 leaves the
+    parameters as they were while the moments still move (the supervised
+    step's non-finite guard, decided on the card without a wait). Where
+    ``grads``, ``params`` and both moments are float32 :class:`FlatTree`
+    of one layout and there is no teacher, gate or clip, each pass runs
+    over the buffers (:func:`_adamw_flat`) and the results are
+    :class:`FlatTree` too.
+
     The JAX tail is one XLA fusion; here each stage is a ``torch._foreach``
     call over all parameters at once, so the tail launches a few kernels
     per stage rather than a few per parameter. Returns
     ``(student, state, teacher)``, all new tensors; with ``teacher`` None
-    (the SimMIM step: AdamW alone, no gates, no clip) the teacher returned
-    is None too."""
+    (the SimMIM and supervised steps: AdamW alone, no gates, no clip) the
+    teacher returned is None too."""
     names = list(params)
     count = state.count + 1
     c1, c2 = _bias_corrections(count, b1, b2)
     lr, wd, momentum = as_f32(lr), as_f32(wd), as_f32(momentum)
-    gate, wd_scale = gate or {}, wd_scale or {}
+    gate, wd_scale, lr_scale = gate or {}, wd_scale or {}, lr_scale or {}
+    rates = [as_f32(lr * as_f32(lr_scale.get(n, 1.0))) for n in names]
+    if teacher is None and not gate and not clip and _one_layout(
+            grads, params, state.mu, state.nu):
+        return _adamw_flat(grads, state, params, count, c1, c2, wd,
+                           wd_scale, rates, keep, b1, b2, eps)
     g = []
     for n in names:
         gn = grads[n].to(f32)
@@ -220,7 +308,10 @@ def fused_adamw_ema_update(
         idx = [i for i, n in enumerate(names) if wd_scale.get(n, 1.0) == ws]
         torch._foreach_add_([step[i] for i in idx],
                             torch._foreach_mul([p32[i] for i in idx], wd * ws))
-    p_new = torch._foreach_sub(p32, torch._foreach_mul(step, lr))
+    if keep is not None:
+        torch._foreach_mul_(step, keep)
+    torch._foreach_mul_(step, rates)
+    p_new = torch._foreach_sub(p32, step)
     student = {n: p.to(params[n].dtype) for n, p in zip(names, p_new)}
     moments = AdamWState(
         count, {n: x.to(state.mu[n].dtype) for n, x in zip(names, m)},

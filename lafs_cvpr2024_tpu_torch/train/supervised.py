@@ -21,6 +21,23 @@ running statistics; the moments still take their decay, as with the JAX
 step's zero lr) and AdamW with BEiT's layer-wise lr decay and weight-decay
 groups.
 
+Each pass over the 295 leaves is a few launches, not one a leaf: the
+parameters, moments, gradients and statistics live in one buffer each
+(``optim.FlatTree``; the first step copies a state of separate tensors
+in), so the compute-dtype copy, the gradient sum and its scale are a
+launch each and the guard one ``where`` a buffer; the update is
+``optim.fused_adamw_ema_update`` with ``teacher=None``, whose element-wise
+passes run over the buffers and whose layer-decay lr and weight decay are
+``_foreach`` passes over the leaves, with the finite flag as its
+``keep``.
+
+Spans and counters (``utils/tracing.py``, when on): ``sup.step`` (host,
+``step=k``) holds ``sup.micro`` (host and device, ``step=k, micro=i``: the
+scale, mix, forward, loss, backward and gradient sum of one microbatch)
+and ``sup.update`` (host and device: the guard and AdamW); counters
+``sup.microbatches``, ``sup.mixed`` (microbatches whose mixup draw mixed)
+and ``sup.nonfinite`` (steps the guard skipped, counted on the card).
+
 Mixed precision as the JAX step does it (``supervised.py:343-351``), not by
 autocast: the WHOLE model, landmark CNN and margin head included, runs on a
 cast copy of the fp32 masters through ``torch.func.functional_call``; the
@@ -48,10 +65,23 @@ from torch.func import functional_call
 from ..models.layers import DropoutRNG
 from ..models.partfvit import PartFViT, PartFViTConfig, init_random_
 from ..ops.augment_device import scale_uint8
-from ..ops.mixup import MixupConfig, mixup_cutmix
+from ..ops.mixup import (
+    MixupConfig,
+    draw_mixup,
+    mix_with_draws,
+    mixup_cutmix,
+)
+from ..utils import tracing
 from .device import CUDA, resolve
 from .losses import softmax_cross_entropy
-from .optim import AdamWState, Tree, adamw_init, adamw_update, param_groups_lrd
+from .optim import (
+    AdamWState,
+    FlatTree,
+    Tree,
+    adamw_init,
+    fused_adamw_ema_update,
+    param_groups_lrd,
+)
 
 
 @dataclass(frozen=True)
@@ -148,6 +178,17 @@ def micro_seeds(seed: int, step: int, acc_step: int):
     return [(int(s[2 * i]), int(s[2 * i + 1])) for i in range(acc_step)]
 
 
+def _mix(images, labels, mix: MixupConfig, seed: int):
+    """Mixup/CutMix of one microbatch with the draws of ``seed``; counts
+    ``sup.mixed`` when the draw mixes."""
+    rng = np.random.default_rng(seed)
+    if not mix.enabled or mix.mode != "batch":
+        return mixup_cutmix(images, labels, mix, rng)
+    draws = draw_mixup(mix, images.shape[1], images.shape[2], rng)
+    tracing.count("sup.mixed", int(draws.apply))
+    return mix_with_draws(images, labels, mix, draws)
+
+
 def make_train_step(cfg: SupervisedConfig) -> Callable:
     """Build ``step(state, images, labels, lr) -> (state, metrics)``.
 
@@ -159,7 +200,15 @@ def make_train_step(cfg: SupervisedConfig) -> Callable:
     is a template on the meta device (``step.model``): every parameter and
     buffer comes from the state through ``functional_call``. Its
     ``landmark_dropout.p`` is the JAX module's hard-coded 0.5; a comparison
-    at rate 0 sets it there."""
+    at rate 0 sets it there.
+
+    Passes over the parameters are a few launches each, not one a leaf:
+    the ``compute_dtype`` copy is one copy a step into one buffer, whose
+    views are the leaves the model runs on; each microbatch's gradients
+    are joined by one ``cat`` and summed into one fp32 buffer
+    (``optim.FlatTree``); the BatchNorm statistics are copied once a step
+    into one buffer that the microbatches move in place. The returned
+    state's parameters and moments are :class:`~.optim.FlatTree` too."""
     check_supported(cfg)
     with torch.device("meta"):
         model = PartFViT(cfg.model).train()
@@ -168,65 +217,84 @@ def make_train_step(cfg: SupervisedConfig) -> Callable:
 
     def loss_and_grads(state: TrainState, images, labels):
         """The microbatch loop: ``(mean loss, mean fp32 grads keyed like
-        the params, batch_stats after the last microbatch)``."""
+        the params, the float BatchNorm statistics after the last
+        microbatch)``, the grads and statistics as :class:`FlatTree`."""
         dev = images.device
         b = images.shape[0] // cfg.acc_step
-        leaves = {n: p.detach().requires_grad_()
-                  for n, p in state.params.items()}
-        grads = {n: torch.zeros_like(p) for n, p in leaves.items()}
-        stats, loss_sum = state.batch_stats, None
+        cast = FlatTree.copy_of(state.params, cd)
+        leaves = {n: t.detach().requires_grad_() for n, t in cast.items()}
+        # BatchNorm moves these in place: one copy, carried across microbatches
+        stats = FlatTree.copy_of({n: t for n, t in state.batch_stats.items()
+                                  if t.is_floating_point()})
+        acc, loss_sum = None, None
         seeds = micro_seeds(state.seed, state.step, cfg.acc_step)
         for i, (s_mix, s_drop) in enumerate(seeds):
-            imgs, labs = images[i * b:(i + 1) * b], labels[i * b:(i + 1) * b]
-            if cfg.input_scale is not None:
-                imgs = scale_uint8(imgs, cfg.input_scale)
-            imgs, targets = mixup_cutmix(imgs, labs, cfg.mixup,
-                                         np.random.default_rng(s_mix))
-            # BatchNorm moves these in place: a copy per microbatch
-            stats = {n: t.clone() for n, t in stats.items()}
-            cast = {n: p.to(cd) for n, p in leaves.items()}
-            logits, _ = functional_call(
-                model, {**cast, **stats}, (imgs.to(cd),),
-                dict(labels=targets, rng=DropoutRNG(s_drop, dev)),
-                strict=True)
-            loss = softmax_cross_entropy(
-                logits.to(torch.promote_types(logits.dtype, torch.float32)),
-                targets)
-            for n, g in zip(leaves, torch.autograd.grad(
-                    loss, list(leaves.values()))):
-                grads[n] += g
-            loss_sum = loss.detach() if loss_sum is None else \
-                loss_sum + loss.detach()
+            with tracing.span("sup.micro", step=state.step, micro=i), \
+                    tracing.device_span("sup.micro", dev, step=state.step,
+                                        micro=i):
+                tracing.count("sup.microbatches")
+                imgs = images[i * b:(i + 1) * b]
+                labs = labels[i * b:(i + 1) * b]
+                if cfg.input_scale is not None:
+                    imgs = scale_uint8(imgs, cfg.input_scale)
+                imgs, targets = _mix(imgs, labs, cfg.mixup, s_mix)
+                logits, _ = functional_call(
+                    model, {**leaves, **state.batch_stats, **stats},
+                    (imgs.to(cd),),
+                    dict(labels=targets, rng=DropoutRNG(s_drop, dev)),
+                    strict=True)
+                loss = softmax_cross_entropy(
+                    logits.to(torch.promote_types(logits.dtype,
+                                                  torch.float32)),
+                    targets)
+                g = torch.cat([x.reshape(-1) for x in torch.autograd.grad(
+                    loss, list(leaves.values()))])
+                acc = g.float() if acc is None else acc.add_(g)
+                loss_sum = loss.detach() if loss_sum is None else \
+                    loss_sum + loss.detach()
         inv = 1.0 / cfg.acc_step
-        return (loss_sum * inv, {n: g * inv for n, g in grads.items()},
-                stats)
+        return loss_sum * inv, cast.like(acc.mul_(inv)), stats
 
-    def update(state: TrainState, loss, grads, stats, lr):
+    def update(state: TrainState, loss, grads: FlatTree, stats: FlatTree,
+               lr):
         """The non-finite guard and AdamW with the layer-decay groups:
-        ``(params, opt_state, batch_stats, finite)``."""
+        ``(params, opt_state, batch_stats, finite)``. A non-finite loss
+        zeroes the gradients, keeps the parameters and the statistics as
+        they were and lets the moments decay: one ``where`` over each
+        buffer, and the finite flag as the update's ``keep``."""
         if "lr_scale" not in groups:
             groups["lr_scale"], groups["wd"] = param_groups_lrd(
                 state.params, cfg.model.depth, cfg.weight_decay,
                 cfg.layer_decay, cfg.stn_weight_decay)
-        finite = torch.isfinite(loss)
-        grads = {n: torch.where(finite, g, torch.zeros_like(g))
-                 for n, g in grads.items()}
-        stats = {n: torch.where(finite, t, state.batch_stats[n])
-                 for n, t in stats.items()}
-        params, opt = adamw_update(
-            grads, state.opt_state, state.params, lr, wd_scale=groups["wd"],
-            wd=1.0, lr_scale=groups["lr_scale"])
-        # a zero lr leaves p as it was (the JAX guard's lr·0)
-        params = {n: torch.where(finite, p, state.params[n])
-                  for n, p in params.items()}
+        with tracing.span("sup.update", step=state.step), \
+                tracing.device_span("sup.update", loss.device,
+                                    step=state.step):
+            finite = torch.isfinite(loss)
+            grads = grads.like(torch.where(finite, grads.flat, 0.0))
+            before = FlatTree.copy_of({n: state.batch_stats[n]
+                                       for n in stats})
+            stats = {**state.batch_stats, **stats.like(
+                torch.where(finite, stats.flat, before.flat))}
+            # a state of separate tensors goes into one buffer each, once
+            params, mu, nu = (t if isinstance(t, FlatTree)
+                              else FlatTree.copy_of(t)
+                              for t in (state.params, state.opt_state.mu,
+                                        state.opt_state.nu))
+            params, opt, _ = fused_adamw_ema_update(
+                grads, AdamWState(state.opt_state.count, mu, nu), params,
+                None, lr, 1.0, 0.0, wd_scale=groups["wd"],
+                lr_scale=groups["lr_scale"], keep=finite.float())
         return params, opt, stats, finite
 
     def step(state: TrainState, images, labels, lr):
-        loss, grads, stats = loss_and_grads(state, images, labels)
-        params, opt, stats, finite = update(state, loss, grads, stats, lr)
+        with tracing.span("sup.step", step=state.step):
+            loss, grads, stats = loss_and_grads(state, images, labels)
+            params, opt, stats, finite = update(state, loss, grads, stats,
+                                                lr)
         new = TrainState(params, stats, opt, state.step + 1, state.seed)
-        return new, {"loss": loss,
-                     "skipped_nonfinite": 1.0 - finite.float()}
+        skipped = 1.0 - finite.float()
+        tracing.count("sup.nonfinite", skipped)
+        return new, {"loss": loss, "skipped_nonfinite": skipped}
 
     # the template and the parts, for callers that compare or time them
     step.model = model

@@ -6,6 +6,7 @@
         with tracing.span("ssl.tail", step=k), tracing.device_span("ssl.tail", dev):
             ...
     tracing.count("serve.rows", 512)
+    tracing.count("sup.nonfinite", skipped)  # a 0-d tensor, read at export
     record = tracing.export()   # {"spans": [...], "counters": {...}}
 
 Off, :func:`span` and :func:`device_span` return one shared null context
@@ -53,6 +54,7 @@ _open = threading.local()  # the stack of open span ids of each thread
 _spans: list = []
 _devices: list = []
 _counters: Counter = Counter()
+_pending: dict = {}  # counters whose increments are tensors on the card
 _launches0: Counter = Counter()
 
 
@@ -67,6 +69,7 @@ def reset() -> None:
     _spans.clear()
     _devices.clear()
     _counters.clear()
+    _pending.clear()
     _launches0.clear()
     _launches0.update(_build.LAUNCHES)
 
@@ -142,9 +145,14 @@ def device_span(name: str, device, **ids):
     return _DeviceSpan(name, ids)
 
 
-def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name``."""
-    if ON:
+def count(name: str, n=1) -> None:
+    """Add ``n`` to the counter ``name``. A 0-d tensor ``n`` is added where
+    it lives (no wait for the card) and read by :func:`export`."""
+    if not ON:
+        return
+    if isinstance(n, torch.Tensor):
+        _pending[name] = n + _pending[name] if name in _pending else n
+    else:
         _counters[name] += n
 
 
@@ -156,7 +164,8 @@ def _device_ms(events) -> float | None:
 def export() -> dict:
     """``{"spans": [...], "counters": {...}}``: the finished spans in the
     order they ended, each device span with its ``device_ms``, and the
-    counters with the kernel launches since :func:`reset` (the wrappers'
+    counters (a tensor counter read, so after the caller's synchronise)
+    with the kernel launches since :func:`reset` (the wrappers'
     ``_build.LAUNCHES``) as ``launch.<kernel>``."""
     spans = list(_spans)
     for d, parent, end, thread in list(_devices):
@@ -164,6 +173,8 @@ def export() -> dict:
                       "start_ns": d.start, "end_ns": end, "thread": thread,
                       "ids": d.ids, "device_ms": _device_ms(d.events)})
     counters = dict(_counters)
+    for k, v in _pending.items():
+        counters[k] = counters.get(k, 0) + int(round(float(v)))
     for k, v in (_build.LAUNCHES - _launches0).items():
         counters["launch." + k] = v
     return {"spans": spans, "counters": counters}
